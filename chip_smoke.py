@@ -27,7 +27,6 @@ this run, on the card named beside it.
 from __future__ import annotations
 
 import json
-import os
 import shutil
 import subprocess
 import sys
@@ -309,17 +308,23 @@ def phase_kernels(device, tag):
         if n == 0:
             fail(f"block scorer check never ran a {key} launch")
 
-    modes = set()
+    fines = set()
 
-    def record_phasea(plan_set, limit):
+    def record_phasea(plan_set, limit, mode, name):
+        """batch_search over ``plan_set``; every phase-A launch is held
+        against the plain version, and one must use lane ``mode``."""
+        nonlocal phasea_err
         with Recorder(ba, "phasea") as rec:
             got = ba.batch_search(seg, plan_set, stats,
                                   [limit] * len(plan_set), device)
+        modes = set()
         for args in rec.calls:
-            err = compare_phasea(args, ba)
-            modes.add((ba._lane_mode(args[4].shape[1], args[6].numel()),
-                       args[7]))
-            yield err
+            phasea_err = max(phasea_err, compare_phasea(args, ba))
+            modes.add(ba._lane_mode(args[4].shape[1], args[6].numel()))
+            fines.add(args[7])
+        if mode not in modes:
+            fail(f"phase-A check of {name} lanes at limit {limit} launched "
+                 f"lane modes {modes}")
         for plan, hits in zip(plan_set, got):
             if hits is not None and hits_key(hits) != hits_key(
                 (h.score, h.doc)
@@ -327,21 +332,23 @@ def phase_kernels(device, tag):
             ):
                 fail("two-phase hits differ from the oracle")
 
-    pure = [p for p in plans
-            if all(gr.occur is Occur.SHOULD for gr in p.groups)]
-    try:
-        # unpacked wide lanes, then two queries' counts per lane
-        for env in ("0", "force"):
-            os.environ["FUGU_PACK_COUNTS"] = env
-            for limit in (10, 100):
-                phasea_err = max([phasea_err, *record_phasea(plans, limit)])
-    finally:
-        del os.environ["FUGU_PACK_COUNTS"]
-    phasea_err = max([phasea_err, *record_phasea(pure, 10)])  # narrow
-    seen = {m for m, _f in modes}
-    fines = {f for _m, f in modes}
-    if not ({0, 1, 2} <= seen and {2, 4} <= fines):
-        fail(f"phase-A check covered lane modes {seen} and fine {fines}")
+    # the engine picks the lane mode: narrow for SHOULD-only batches,
+    # wide for boolean batches, packed counts once a wide stream needs
+    # b_pad = 256 (more than 128 queries)
+    pure = [QueryPlan(groups=tuple(
+        g(Occur.SHOULD, t)
+        for t in rng.choice(terms, size=int(rng.integers(1, 5)), replace=False)
+    )) for _ in range(2 * ba.MIN_BATCH)]
+    musts = [QueryPlan(groups=tuple(
+        g(Occur.MUST, t)
+        for t in rng.choice(terms, size=int(rng.integers(2, 4)), replace=False)
+    )) for _ in range(160)]
+    for limit in (10, 100):
+        record_phasea(plans, limit, 1, "wide")
+    record_phasea(pure, 10, 0, "narrow")
+    record_phasea(musts, 10, 2, "packed")
+    if not {2, 4} <= fines:
+        fail(f"phase-A check covered fine {fines}")
     log(f"kernel check {tag}: block scorer matched its plain version on "
         f"{sum(n_checked[k] for k in ('dense', 'top128'))} launches "
         f"({n_checked}), max abs err {scorer_err!r} (tolerance "

@@ -53,7 +53,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -646,7 +645,6 @@ def _merge_streams(batches, batch_terms, kinds, plans=None, tid_of=None):
     batches containing an "upper" plan never fold (merging would drag
     every query through the full raw-maxima host path, which the flop
     units don't price)."""
-    pack_env = os.environ.get("FUGU_PACK_COUNTS", "")
     changed = True
     while changed:
         changed = False
@@ -670,7 +668,7 @@ def _merge_streams(batches, batch_terms, kinds, plans=None, tid_of=None):
                 b_m = next(v for v in B_BUCKETS if n_m <= v)
                 # narrow queries lead: _pack_order pairs them freely
                 merged = (qa + qb) if wb else (qb + qa)
-                packable = pack_env != "0" and b_m >= _PACK_MIN_B
+                packable = b_m >= _PACK_MIN_B
                 if packable and plans is not None and tid_of is not None:
                     packable = (
                         _pack_order(merged, plans, tid_of, b_m // 2)
@@ -846,10 +844,7 @@ def batch_search(
         eff = _effective_kinds(plans, kinds, q_idx, wide)
         # bit-pack two queries' count columns per lane at b_pad = 256
         packed = False
-        pack_env = os.environ.get("FUGU_PACK_COUNTS", "")
-        if wide and pack_env != "0" and (
-            b_pad >= _PACK_MIN_B or pack_env == "force"
-        ):
+        if wide and b_pad >= _PACK_MIN_B:
             order = _pack_order(q_idx, plans, pack.tid_of, b_pad // 2)
             if order is not None:
                 q_idx = order

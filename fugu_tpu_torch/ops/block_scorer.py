@@ -23,7 +23,6 @@ order bit-identical to the NumPy oracle.
 from __future__ import annotations
 
 import ctypes
-import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -56,18 +55,6 @@ _INT_MAX = 2**31 - 1
 
 #: kernel launches (not plain-version calls) since process start
 launches = 0
-
-
-def _use_inkernel_topk(k: int) -> bool:
-    """Route k == K_OUT (the limit-100 extraction bucket) through the
-    in-kernel top-128 unless FUGU_INKERNEL_TOPK=0 ("all" routes every
-    k there: the 128 candidates are a superset of any smaller k's)."""
-    v = os.environ.get("FUGU_INKERNEL_TOPK", "1")
-    if v == "0":
-        return False
-    if v == "all":
-        return True
-    return k == K_OUT
 
 
 def _order_keys(scores: torch.Tensor, tiebreak: torch.Tensor) -> torch.Tensor:
@@ -368,7 +355,9 @@ def block_search_begin(
     # per-term block-offset tables are query-independent — cache them on
     # the segment so repeated terms across a batch skip the searchsorted
     offs_cache = segment.__dict__.setdefault("_block_offsets", {})
-    topk = _use_inkernel_topk(k)
+    # the k = 128 bucket (limits 64..128) keeps its running top-128 in
+    # the kernel; smaller k write dense scores for topk_dense
+    topk = k == K_OUT
 
     for (t_pad, need_bits), items in by_t.items():
         rows = []

@@ -194,22 +194,22 @@ def test_limit_above_128_declines(segs):
 def test_block_slice_split(segs, monkeypatch):
     """NB_SPLIT = 1 makes every block its own kernel row; the per-slice
     top-k lists merge on the host and must stay exact, on both the dense
-    and the in-kernel top-128 paths."""
+    (limit 10, k = 16) and the in-kernel top-128 (limit 100) paths."""
     monkeypatch.setattr(ps, "NB_SPLIT", 1)
     monkeypatch.setattr(ref_ps, "NB_SPLIT", 1)
     plans = [plan_terms("w0", "w3"), plan_terms("w0", "w5", occur=Occur.MUST)]
     assert_identical(*segs, plans, 10)
-    monkeypatch.setenv("FUGU_INKERNEL_TOPK", "all")
-    ref_ps._SCORER_CACHE.clear()
     assert_identical(*segs, plans, 100)
-    ref_ps._SCORER_CACHE.clear()
 
 
 @pytest.mark.parametrize("mode", ["1", "0"])
 def test_inkernel_topk_tie_corpus(monkeypatch, mode):
     """More than 128 docs tie on one score: the doc-asc tie-break decides
-    which docs survive extraction, in the top-128 mode and in the dense
-    mode (FUGU_INKERNEL_TOPK=0)."""
+    which docs survive extraction, in the top-128 mode ("1") and in the
+    dense mode ("0").  The reference takes the mode from its
+    FUGU_INKERNEL_TOPK switch; end to end both engines must give the
+    oracle's hits, and the port's raw k = 128 extraction in the same
+    mode must give the reference kernel's docs."""
     b = SegmentBuilder(DOCS_SCHEMA)
     for i in range(8000):
         text = "foo bar baz qux" if i % 3 == 0 else "filler words only here"
@@ -220,7 +220,9 @@ def test_inkernel_topk_tie_corpus(monkeypatch, mode):
     ref.tombstones[::97] = True
     monkeypatch.setenv("FUGU_INKERNEL_TOPK", mode)
     ref_ps._SCORER_CACHE.clear()
-    assert_identical(ref, to_port(ref), [plan_terms("foo", "bar")], 100)
+    plans = [plan_terms("foo", "bar")]
+    assert_identical(ref, to_port(ref), plans, 100)
+    assert_raw_topk(ref, plans, ps.K_OUT, inkernel=mode == "1")
     ref_ps._SCORER_CACHE.clear()
 
 
@@ -285,28 +287,22 @@ def stage_rows(port, plans, stats, t_pad, nb_pad):
             masks), need
 
 
-@pytest.mark.parametrize("k", [32, 128])
-def test_raw_topk_matches_reference_kernel(k):
-    """Raw kernel output, before the host rescore: the same candidate
+def assert_raw_topk(ref, plans, k, inkernel, t_pad=4, nb_pad=32):
+    """One kernel dispatch of ``plans`` (one row each) before the host
+    rescore, in the reference's scorer call (interpret mode) and in the
+    port's ``score_rows``, both in the given mode (running top-128 in the
+    kernel, or dense scores and a top-k outside it): the same candidate
     docs, and scores within 1e-6 relative.  The scores are not bit-equal
     because the reference's interpret-mode kernel scatters through a
     three-way bf16 split of each f32 contribution and an f32 matmul,
     which reproduces the contribution only to a few f32 ulps, while the
     port adds the exact f32 contributions in clause order."""
-    ref = make_ref_segment()
-    ref.tombstones[::11] = True
     port = to_port(ref)
     stats = oracle.IndexStats([port])
-    plans = [
-        to_port_plan(p)
-        for p in (plan_terms("w0", "w3"), CASES["must"][0],
-                  CASES["mustnot"][0], CASES["facet_filter"][0])
-    ]
-    t_pad, nb_pad = 4, 32
+    plans = [to_port_plan(p) for p in plans]
     tables, need_bits = stage_rows(port, plans, stats, t_pad, nb_pad)
     e_doc, e_tffid, _ = (np.asarray(a) for a in ref.device_pack())
     tomb = np.asarray(ref.device_tomb_flags())
-    inkernel = k == ps.K_OUT
     call = ref_ps.build_scorer_call(t_pad, nb_pad, k, len(plans), need_bits,
                                     interpret=True, inkernel_topk=inkernel)
     (nblocks, block_ids, starts, counts, *rest) = tables
@@ -331,3 +327,15 @@ def test_raw_topk_matches_reference_kernel(k):
     fin = np.isfinite(want_s)
     np.testing.assert_array_equal(np.isfinite(got_s), fin)
     np.testing.assert_allclose(got_s[fin], want_s[fin], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("k", [32, 128])
+def test_raw_topk_matches_reference_kernel(k):
+    """Raw candidates of the dense (k = 32) and in-kernel top-128
+    (k = 128) modes against the reference kernel's, over MUST, MUST_NOT,
+    facet and SHOULD rows with tombstones."""
+    ref = make_ref_segment()
+    ref.tombstones[::11] = True
+    plans = [plan_terms("w0", "w3"), CASES["must"][0], CASES["mustnot"][0],
+             CASES["facet_filter"][0]]
+    assert_raw_topk(ref, plans, k, inkernel=k == ps.K_OUT)
