@@ -5,19 +5,27 @@ It exits non-zero at the first failure and prints no result line when
 no CUDA device exists or the checkout is missing.  Phases:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build both CUDA kernels (``fugu_tpu_torch/csrc``) and the native
-   tokenizer from the checkout's sources;
+2. build the three CUDA kernels (``fugu_tpu_torch/csrc``, one ``nvcc``
+   each, all started together) and the native tokenizer from the
+   checkout's sources;
 3. each kernel against its plain PyTorch version on the card, on a
-   seeded 50k-doc segment: the block scorer (dense and top-128 modes,
-   4- and 16-clause rows, MUST / MUST_NOT / SHOULD, tombstones) and
-   phase A (narrow, wide and packed lanes; fine = 2 and 4);
+   seeded 50k-doc segment with one doc that spans several stream
+   chunks: the block scorer (dense and top-128 modes, 4- and 16-clause
+   rows, MUST / MUST_NOT / SHOULD, tombstones), phase A (narrow, wide
+   and packed lanes; fine = 2 and 4) and the phrase kernel (slop 0 and
+   sloppy dispatches, every kmax bucket, 64 and 256 query lanes), plus
+   the phrase kernel on a segment of pervasive ties;
 4. the main path: a seeded 1M-doc corpus (bench.py's generator) is
    committed to a namespace directory, opened with the port's
    ``NamedIndex`` and queried with bench.py's 256-query mix through
    ``search_topk_batch``, one call per limit; every result must equal
-   the port's NumPy oracle bit for bit, and both kernels must have run;
-5. warm QPS of the mix, and each kernel's time against its plain
-   version's, replaying the calls the main path made.
+   the port's NumPy oracle bit for bit, and the block scorer and phase
+   A must have run.  Then a 256-phrase batch goes through the same
+   ``search_topk_batch``: it must be routed to the phrase stream, run
+   the phrase kernel with and without slop, and equal the oracle;
+5. warm QPS of the mix, the phrase batch's wall time against the host
+   matcher's, and each kernel's time against its plain version's,
+   replaying the calls the main path made.
 
 The last lines are a JSON object per kernel, the card line, and
 ``{"ok": true, "device": {...}}``.  Every number printed is measured in
@@ -32,6 +40,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -46,6 +55,12 @@ MEAN_DOC_LEN = 55
 #: sum the same f32 terms in clause order with IEEE division, so the
 #: expected difference is 0; this bounds a last-ulp difference only
 SCORER_RTOL = 1e-6
+#: the phrase kernel and its plain version compute IEEE f32 scores from
+#: the same integer phrase tf, so their maxima must agree bit for bit
+PHRASE_ATOL = 0.0
+#: the check segment's doc that spans several 2048-row stream chunks
+LONG_PAIR = ("t00005", "t00007")
+LONG_DOC = " ".join([" ".join(LONG_PAIR)] * 1500)
 
 
 def fail(msg: str) -> None:
@@ -66,10 +81,11 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def build_corpus(n_docs: int, seed: int, vocab_size: int):
+def build_corpus(n_docs: int, seed: int, vocab_size: int, extra=()):
     """bench.py's synthetic Zipfian corpus (bench.py:138-178), built with
     the port's SegmentBuilder: Zipf 1.07 vocabulary, Poisson(55) doc
-    lengths clipped to [5, 200], one of 20 facet sources per doc."""
+    lengths clipped to [5, 200], one of 20 facet sources per doc; the
+    texts of ``extra`` follow as more docs."""
     from fugu_tpu_torch.index.schema import DOCS_SCHEMA
     from fugu_tpu_torch.index.segment import SegmentBuilder
 
@@ -89,7 +105,48 @@ def build_corpus(n_docs: int, seed: int, vocab_size: int):
             facets=[f"/source/{int(srcs[i])}"],
             stored={"id": f"d{i}"},
         )
+    for i, text in enumerate(extra):
+        b.add_document({"text": [text]}, facets=["/source/0"],
+                       stored={"id": f"x{i}"})
     return b.build()
+
+
+def df_picker(seg, rng):
+    """bench.py's term draw: ``pick(n)`` gives n distinct terms of the
+    text field, each drawn with probability proportional to its df."""
+    terms = sorted(seg.terms["text"].keys())
+    dfs = np.array([seg.terms["text"][t].doc_freq for t in terms],
+                   dtype=np.float64)
+    w = dfs / dfs.sum()
+
+    def pick(n):
+        idx = rng.choice(len(terms), size=n, replace=False, p=w)
+        return [terms[i] for i in idx]
+
+    return pick
+
+
+def phrase_plan(words, slop=0, boost=1.0):
+    """A quoted phrase over the text field (the shape the stream takes)."""
+    from fugu_tpu_torch.query import Occur, PhraseClause, QueryGroup, QueryPlan
+
+    return QueryPlan(groups=(QueryGroup(Occur.SHOULD, phrases=(
+        PhraseClause("text", tuple(words), boost, slop),)),))
+
+
+def make_phrase_batch(seg, seed_offset: int = 2):
+    """The main path's 256-plan phrase batch: 192 plans of bench.py's
+    phrase class (two df-weighted terms), 32 of three to four terms and
+    32 of two to three terms with slop 1 or 2."""
+    rng = np.random.default_rng(SEED + seed_offset)
+    pick = df_picker(seg, rng)
+    plans = [phrase_plan(pick(2)) for _ in range(192)]
+    plans += [phrase_plan(pick(int(rng.integers(3, 5)))) for _ in range(32)]
+    plans += [
+        phrase_plan(pick(int(rng.integers(2, 4))), int(rng.integers(1, 3)))
+        for _ in range(32)
+    ]
+    return plans
 
 
 def make_query_mix(seg, n_queries: int = 256, seed_offset: int = 1):
@@ -101,14 +158,7 @@ def make_query_mix(seg, n_queries: int = 256, seed_offset: int = 1):
     )
 
     rng = np.random.default_rng(SEED + seed_offset)
-    terms = sorted(seg.terms["text"].keys())
-    dfs = np.array([seg.terms["text"][t].doc_freq for t in terms],
-                   dtype=np.float64)
-    w = dfs / dfs.sum()
-
-    def pick(n):
-        idx = rng.choice(len(terms), size=n, replace=False, p=w)
-        return [terms[i] for i in idx]
+    pick = df_picker(seg, rng)
 
     def should_plan(words):
         return QueryPlan(groups=tuple(
@@ -242,6 +292,22 @@ def compare_phasea(args, ba):
     return float(diff.max())
 
 
+def compare_phrase(args, ps):
+    """max |kernel - plain| of one recorded phrase-kernel call; fails
+    unless the classes are identical and the maxima bit-identical."""
+    import torch
+
+    gmax, gcls = ps.phrase_stream(*args)
+    rmax, rcls = ps.phrase_stream_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(gcls, rcls):
+        fail("phrase kernel: argmax classes differ from plain")
+    if not torch.equal(gmax.view(torch.int32), rmax.view(torch.int32)):
+        fail("phrase kernel: maxima are not bit-identical to plain")
+    fin = torch.isfinite(rmax)
+    return float((gmax[fin] - rmax[fin]).abs().max()) if fin.any() else 0.0
+
+
 def hits_key(pairs):
     """(f32 score, doc) list: the bit-level identity of a result."""
     return [(np.float32(s), int(d)) for s, d in pairs]
@@ -255,7 +321,7 @@ def phase_kernels(device, tag):
     from fugu_tpu_torch.ops import oracle
     from fugu_tpu_torch.query import Occur, QueryGroup, QueryPlan, TermClause
 
-    seg = build_corpus(CHECK_DOCS, SEED + 100, 2_000)
+    seg = build_corpus(CHECK_DOCS, SEED + 100, 2_000, extra=(LONG_DOC,))
     seg.tombstones[::37] = True
     stats = oracle.IndexStats([seg])
     rng = np.random.default_rng(SEED + 101)
@@ -356,7 +422,170 @@ def phase_kernels(device, tag):
         f"narrow/wide/packed and fine {sorted(fines)}, max abs err "
         f"{phasea_err!r} (tolerance MARGIN_REL {ba.MARGIN_REL} + "
         f"MARGIN_ABS {ba.MARGIN_ABS})")
-    return scorer_err, phasea_err
+    phrase_err = phase_phrase_kernel(device, seg, stats, tag)
+    return scorer_err, phasea_err, phrase_err
+
+
+def phase_phrase_kernel(device, seg, stats, tag):
+    """Phase 3, phrase kernel: batches through ``batch_phrase_search``
+    on the check segment and on a segment of pervasive ties; every
+    launch is held against the plain version, every hit list against
+    the oracle, and the launches must cover both slop groups, every
+    kmax bucket and 64 and 256 query lanes."""
+    from fugu_tpu_torch.index.schema import DOCS_SCHEMA
+    from fugu_tpu_torch.index.segment import SegmentBuilder
+    from fugu_tpu_torch.ops import oracle
+    from fugu_tpu_torch.ops import phrase_stream as ps
+
+    rng = np.random.default_rng(SEED + 102)
+    pick = df_picker(seg, rng)
+    text = seg.terms["text"]
+    head = sorted(text, key=lambda t: (-text[t].doc_freq, t))[:150]
+
+    def pick_head(n):
+        return list(rng.choice(head, size=n))
+
+    def rep_last(words):  # a repeated term: "a b c a"
+        return words + words[:1]
+
+    batches = {
+        "kmax 2": [phrase_plan(pick(2)) for _ in range(39)]
+        + [phrase_plan(LONG_PAIR)],
+        "kmax 4": [phrase_plan(pick(int(rng.integers(3, 5))))
+                   for _ in range(32)]
+        + [phrase_plan(rep_last(pick(2))) for _ in range(8)],
+        "kmax 8, 256 lanes": [phrase_plan(pick_head(2)) for _ in range(150)]
+        + [phrase_plan(pick_head(int(rng.integers(5, 9))))
+           for _ in range(50)],
+        "sloppy kmax 7": [phrase_plan(pick(int(rng.integers(2, 7))),
+                                      int(rng.integers(1, 3)))
+                          for _ in range(38)]
+        + [phrase_plan(pick(7), 2), phrase_plan(LONG_PAIR, 1, 1.5)],
+    }
+    tied_docs = (ps.PHRASE_TOPK + 8) * ps.BM_FINE_DOCS
+    b = SegmentBuilder(DOCS_SCHEMA)
+    for i in range(tied_docs):
+        b.add_document({"text": ["foo bar baz qux"]}, stored={"id": f"t{i}"})
+    tied = b.build()
+    tied_plans = [phrase_plan(w) for w in (
+        ("foo", "bar"), ("foo", "bar"), ("bar", "baz"), ("baz", "qux"),
+        ("foo", "bar", "baz"), ("bar", "baz", "qux"),
+        ("foo", "bar", "baz", "qux"), ("qux", "foo"))]
+
+    err, seen, lanes = 0.0, set(), set()
+    runs = [(seg, stats, plans, name) for name, plans in batches.items()]
+    runs.append((tied, oracle.IndexStats([tied]), tied_plans, "ties"))
+    for s, st, plans, name in runs:
+        limits = [10 if i % 3 else 100 for i in range(len(plans))]
+        if name == "ties":
+            limits = [3, 10, 10, 10, 10, 10, 10, 10]
+        with Recorder(ps, "phrase_stream") as rec:
+            got = ps.batch_phrase_search(s, plans, st, limits, device)
+        if not rec.calls:
+            fail(f"phrase check {name}: the stream launched nothing")
+        for args in rec.calls:
+            err = max(err, compare_phrase(args, ps))
+            seen.add((args[8], args[4].shape[1]))
+            lanes.add(args[4].shape[0])
+        for plan, lim, hits in zip(plans, limits, got):
+            exp = [(h.score, h.doc) for h in oracle.search([s], plan, lim, st)]
+            if hits is None or hits_key(hits) != hits_key(exp):
+                fail(f"phrase stream hits differ from the oracle ({name})")
+    want = {(0, 2), (0, 4), (0, 8), (2, 7)}
+    if not want <= seen or not {64, 256} <= lanes:
+        fail(f"phrase check launched (smax, kmax) {sorted(seen)} and "
+             f"query lanes {sorted(lanes)}")
+    log(f"kernel check {tag}: phrase kernel matched its plain version on "
+        f"(smax, kmax) {sorted(seen)}, query lanes {sorted(lanes)}, a "
+        f"{len(LONG_DOC.split())}-token doc and {tied_docs} tied docs; max "
+        f"abs err {err!r} (tolerance {PHRASE_ATOL}, classes identical); "
+        f"hits equal the oracle")
+    return err
+
+
+def phase_phrase_batch(ni, seg, stats, tag):
+    """Phase 4, phrases: ``make_phrase_batch`` through
+    ``ni.search_topk_batch`` at limit 10, cold (token-pack build
+    included) and 3 warm passes, against the host matcher on the same
+    plans; every result must equal the oracle, the batch must be routed
+    to the stream and the phrase kernel must run with and without slop.
+    One more pass is timed in parts.  Returns the first warm pass's
+    kernel calls and the launches of the 3 warm passes."""
+    import torch
+
+    from fugu_tpu_torch.ops import oracle, residency
+    from fugu_tpu_torch.ops import phrase_stream as ps
+    from fugu_tpu_torch.ops.blockmax import search_blockmax
+
+    plans = make_phrase_batch(seg)
+
+    def run():
+        out = ni.search_topk_batch(plans, 10)
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    cold = run()
+    t_cold = time.perf_counter() - t0
+    tok_bytes = residency.stats()["by_kind"].get("token_stream", 0)
+    ps.launches = 0
+    ni.routes.clear()
+    passes = []
+    with Recorder(ps, "phrase_stream") as rec:
+        for k in range(3):
+            t0 = time.perf_counter()
+            warm = run()
+            passes.append(time.perf_counter() - t0)
+            if k == 0:
+                calls = list(rec.calls)
+    launches, routes = ps.launches, dict(ni.routes)
+    if launches <= 0 or routes.get("phrase_stream", 0) <= 0:
+        fail(f"the phrase batch never reached the phrase kernel: routes "
+             f"{routes}, launches {launches}")
+    # where a warm pass goes: staging and launches, the device's work,
+    # then the fetch and the host verify of the shipped blocks
+    t0 = time.perf_counter()
+    handle = ps.phrase_stream_begin(seg, plans, stats, [10] * len(plans),
+                                    ni.device)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ps.phrase_stream_collect(handle)
+    split = [round(t, 4) for t in (t1 - t0, t2 - t1, time.perf_counter() - t2)]
+    smaxes = sorted({a[8] for a in calls})
+    if smaxes != [0, 2]:
+        fail(f"the phrase batch launched smax {smaxes}, want [0, 2]")
+    t0 = time.perf_counter()
+    host = [search_blockmax(seg, p, stats, 10) for p in plans]
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        exps = list(pool.map(
+            lambda p: oracle.search([seg], p, 10, stats), plans))
+    t_oracle = time.perf_counter() - t0
+    n_ok = 0
+    for w, c, h, exp in zip(warm, cold, host, exps):
+        want = hits_key((x.score, x.doc) for x in exp)
+        n_ok += (
+            hits_key((x.score, x.doc) for x in w) == want
+            and hits_key((x.score, x.doc) for x in c) == want
+            and (h is None or hits_key(h) == want)
+        )
+    med = sorted(passes)[1]
+    log(f"phrase batch {tag}: {n_ok}/{len(plans)} results bit-identical "
+        f"to the oracle (oracle {t_oracle:.1f} s); plans per route over 3 "
+        f"warm passes {routes}; phrase launches {launches} (smax {smaxes}, "
+        f"{len(calls)} per pass)")
+    if n_ok != len(plans):
+        fail(f"only {n_ok}/{len(plans)} phrase results match the oracle")
+    log(f"phrase time {tag}: warm 256-phrase batch {med:.4f} s through "
+        f"the stream (median of passes {[round(p, 4) for p in passes]} s), "
+        f"host matcher on the same plans {t_host:.4f} s; cold pass "
+        f"{t_cold:.2f} s with the token-pack build; token pack "
+        f"{tok_bytes} bytes on the card; routing constants as fitted on "
+        f"the TPU host; one more pass split into staging and launch / "
+        f"device wait / fetch and host verify {split} s")
+    return calls, launches
 
 
 def main() -> None:
@@ -380,8 +609,9 @@ def main() -> None:
     from fugu_tpu_torch import cuda_build, native
 
     t0 = time.perf_counter()
-    for name in ("block_scorer", "phasea"):
-        cuda_build.load(name)
+    names = ("block_scorer", "phasea", "phrase")
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(cuda_build.load, names))  # raises if a build failed
     t_kernels = time.perf_counter() - t0
     if not native.available():
         fail("native tokenizer did not build")
@@ -394,7 +624,7 @@ def main() -> None:
                 log(f"  ptxas {name}: {line.strip()}")
 
     # phase 3: kernels against their plain versions
-    scorer_err, phasea_err = phase_kernels(device, tag)
+    scorer_err, phasea_err, phrase_err = phase_kernels(device, tag)
 
     # phase 4: the main path on a 1M-doc namespace
     from fugu_tpu_torch.engine.named_index import NamedIndex
@@ -403,6 +633,7 @@ def main() -> None:
     from fugu_tpu_torch.ops import batch_scorer as ba
     from fugu_tpu_torch.ops import block_scorer as bs
     from fugu_tpu_torch.ops import oracle
+    from fugu_tpu_torch.ops import phrase_stream as ps
 
     work = Path(tempfile.mkdtemp(prefix="smoke-", dir=REPO / "fugu_tpu_torch"
                                  / "_build"))
@@ -470,7 +701,13 @@ def main() -> None:
         med = sorted(passes)[1]
         log(f"QPS {tag}: warm 256-query mix {len(mix) / med:.1f} QPS "
             f"(median of {len(passes)} passes {[round(p, 4) for p in passes]}"
-            f" s; cold pass {t_cold:.2f} s)")
+            f" s; cold pass {t_cold:.2f} s); its {routes.get('host_only', 0)}"
+            f" host-matcher and {routes.get('phrase_stream', 0)} streamed "
+            f"phrase plans over 3 passes follow the overlap credit")
+
+        # phase 4, phrases: a 256-phrase batch on the same namespace
+        calls_p, p_launches = phase_phrase_batch(ni, seg, stats, tag)
+        launches["phrase_stream"] = p_launches
 
         # phase 5: kernel vs plain time at the main path's shapes
         kernels = []
@@ -481,6 +718,9 @@ def main() -> None:
             ("phase_a", calls_a, ba, "phasea", "phasea_plain",
              "fugu_tpu_torch/csrc/phasea.cu",
              "fugu_tpu/ops/batch_scorer.py:195", compare_phasea),
+            ("phrase_stream", calls_p, ps, "phrase_stream",
+             "phrase_stream_plain", "fugu_tpu_torch/csrc/phrase.cu",
+             "fugu_tpu/ops/phrase_stream.py:539", compare_phrase),
         ):
             err = max(cmp(a, mod) for a in calls)
             fk, fp = getattr(mod, run), getattr(mod, plain)
@@ -492,10 +732,11 @@ def main() -> None:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             })
             log(f"kernel time {tag}: {name} {ms:.3f} ms vs plain "
-                f"{plain_ms:.3f} ms per warm mix pass ({len(calls)} "
-                f"launches), max abs err {err!r}")
-        kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], scorer_err)
-        kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], phasea_err)
+                f"{plain_ms:.3f} ms per warm pass of its batch "
+                f"({len(calls)} launches), max abs err {err!r}")
+        for k, check_err in zip(kernels, (scorer_err, phasea_err,
+                                          phrase_err)):
+            k["max_abs_err"] = max(k["max_abs_err"], check_err)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -12,8 +12,10 @@ Every segment goes through the hybrid device engine (the reference's
 the block scorer for the plans phase A declines, then the host block-max
 engine or the oracle for the plans both decline by design (phrases,
 more than 16 clauses or 32 groups, a nonpositive weight, limit above
-128).  Device errors propagate to the caller; there is no device-to-host
-fallback.
+128).  Quoted phrases take the phrase stream (ops/phrase_stream) where
+its routing cost model sends them, as the reference's default does, and
+the host matcher otherwise.  Device errors propagate to the caller;
+there is no device-to-host fallback.
 """
 
 from __future__ import annotations
@@ -97,7 +99,7 @@ class NamedIndex:
         self._stats: Optional[oracle_ops.IndexStats] = None
         self._snap_stats: Optional[tuple] = None
         #: plans answered per engine ("phase_a", "block_scorer", "host",
-        #: "host_only") since the index was opened
+        #: "phrase_stream", "host_only") since the index was opened
         self.routes: Dict[str, int] = {}
 
     @property
@@ -134,6 +136,36 @@ class NamedIndex:
         docs."""
         return list(self.segments)
 
+    def _phrase_stream_begin(self, seg, plans, host_only_idx, n_device,
+                             stats, limit):
+        """Launch the phrase stream for ``host_only_idx`` on ``seg`` when
+        the routing cost model wants it (the reference's default auto
+        mode), else None.  The concurrent device batch of ``n_device``
+        plans sweeps only this segment, so its overlap credit scales by
+        the segment's share of the index's tokens."""
+        from fugu_tpu_torch.ops.phrase_stream import (
+            estimate_device_batch_ms,
+            phrase_stream_begin,
+            want_stream,
+        )
+
+        phrase_plans = [plans[i] for i in host_only_idx]
+        tot = max(sum(stats.total_tokens.values()), 1)
+        share = sum(seg.total_tokens.values()) / tot
+        if not want_stream(
+            len(phrase_plans),
+            plans=phrase_plans,
+            stats=stats,
+            overlap_ms=estimate_device_batch_ms(
+                stats, n_device, token_share=share
+            ),
+        ):
+            return None
+        return phrase_stream_begin(
+            seg, phrase_plans, stats, [limit] * len(phrase_plans),
+            self.device,
+        )
+
     def search_topk(self, plan: QueryPlan, limit: int) -> List[oracle_ops.Hit]:
         """Top-k across segments for one plan."""
         return self.search_topk_batch([plan], limit)[0]
@@ -165,14 +197,29 @@ class NamedIndex:
             device_idx = [
                 i for i in runnable if on_device and not plans[i].host_only
             ]
-            # host-only plans (phrases) run on a worker thread WHILE the
-            # device batch executes: their NumPy work hides under the
-            # device wait (both sides release the GIL)
             host_only_idx = [i for i in runnable if plans[i].host_only]
             host_map: Dict[int, Any] = {}
             host_thread = None
-            if host_only_idx and device_idx:
-                def _host_work(seg=seg, idx=tuple(host_only_idx)):
+            # quoted phrases the cost model routes to the phrase stream
+            # are staged and launched before the device batch, and
+            # collected after it; errors propagate
+            stream_handle = self._phrase_stream_begin(
+                seg, plans, host_only_idx, len(device_idx), stats, limit
+            ) if host_only_idx and on_device else None
+            phrase_host_idx = host_only_idx
+            if stream_handle is not None:
+                pre, staged = stream_handle[0], stream_handle[1]
+                covered = {j for j, _pc in staged} | {
+                    j for j, r in enumerate(pre) if r is not None
+                }
+                phrase_host_idx = [
+                    i for j, i in enumerate(host_only_idx) if j not in covered
+                ]
+            # the other host-only plans (phrases) run on a worker thread
+            # WHILE the device batch executes: their NumPy work hides
+            # under the device wait (both sides release the GIL)
+            if phrase_host_idx and device_idx:
+                def _host_work(seg=seg, idx=tuple(phrase_host_idx)):
                     for i in idx:
                         try:
                             host_map[i] = search_blockmax(
@@ -191,11 +238,23 @@ class NamedIndex:
                         self.device, self.routes,
                     )
                     res_map = dict(zip(device_idx, batch_res))
+                if stream_handle is not None:
+                    from fugu_tpu_torch.ops.phrase_stream import (
+                        phrase_stream_collect,
+                    )
+
+                    for j, r in enumerate(phrase_stream_collect(stream_handle)):
+                        if r is not None:
+                            host_map[host_only_idx[j]] = r
             finally:
                 if host_thread is not None:
                     host_thread.join()
+            n_stream = len(host_only_idx) - len(phrase_host_idx)
+            self.routes["phrase_stream"] = (
+                self.routes.get("phrase_stream", 0) + n_stream
+            )
             self.routes["host_only"] = (
-                self.routes.get("host_only", 0) + len(host_only_idx)
+                self.routes.get("host_only", 0) + len(phrase_host_idx)
             )
             for i in runnable:
                 res = res_map.get(i)

@@ -130,8 +130,19 @@ _STREAM_PENALTY_LANES = 96
 #: more candidate-mask rows; a stream whose every live query extracts
 #: deep (limit > DEEP_LIMIT) takes DEEP_FINE.
 FINE_PER_BLOCK = 2
+BM_FINE_DOCS = BM_BLOCK_DOCS // FINE_PER_BLOCK
 DEEP_LIMIT = 32
 DEEP_FINE = 4
+
+
+def _nb_pad(nb: int) -> int:
+    """The reference's padded block count of a stream (its jit shape
+    ladder); the phrase stream keeps it so its outputs have the
+    reference's shapes."""
+    for v in (64, 256, 1024, 2048, 4096, 8192):
+        if nb <= v:
+            return v
+    return ((nb + 1023) // 1024) * 1024
 
 
 def _fine_for_stream(q_idx, limits) -> int:

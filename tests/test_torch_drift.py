@@ -8,7 +8,9 @@ machine.  Four
 modules are carried with named definitions rewritten for torch or for
 the port's build directory; those definitions (and the module docstring
 where listed) are left out of the comparison on both sides, and the
-rest must be equal line for line.
+rest must be equal line for line.  Where a module's list holds
+``"import"``, its top-level imports are left out too (the reference's
+import JAX and modules the port does not carry).
 """
 
 import ast
@@ -48,13 +50,31 @@ REWRITTEN = {
         "__doc__", "NATIVE_DIR", "BUILD_DIR", "LIB_PATH", "build_library",
     },
     "ops/residency.py": {"__doc__", "_auto_budget", "_HBM_BY_KIND"},
+    "ops/phrase_stream.py": {
+        "__doc__", "import", "jax_setup.configure",
+        # routing without the environment
+        "PHRASE_MIN_BATCH", "PHRASE_AUTO_MIN", "HOST_NS_PER_MIN_POSTING",
+        "HOST_NS_PER_INTER_DOC", "STREAM_NS_PER_TOKEN", "STREAM_FIXED_MS",
+        "STREAM_MS_PER_PHRASE", "phrase_stream_mode", "want_stream",
+        # torch tensors on the index's device
+        "TokenStreamPack", "get_token_stream",
+        # the TPU kernel and its CUDA and plain PyTorch counterparts
+        "_phrase_kernel", "_phrase_callable", "_KERNEL_CACHE", "_get_kernel",
+        "U_MAX", "Q_TILE", "launches", "_PLAIN_TF_ELEMS", "_PLAIN_PAIRS",
+        "_row_slots", "phrase_stream_plain", "phrase_stream", "_lib",
+        # staging, postproc and the entry points on a torch device
+        "phrase_stream_begin", "stage_group_weights", "stage_group",
+        "_dispatch_group", "_PHRASE_POST_CACHE", "_get_phrase_post",
+        "phrase_post", "phrase_stream_collect", "batch_phrase_search",
+    },
 }
 
 
 def _strip(source: str, names) -> list:
     """Source lines without the named top-level definitions, methods
-    (``Class.method``), assignments and module docstring; blank lines
-    dropped."""
+    (``Class.method``), assignments, calls (by the called name) and
+    module docstring, and without the top-level imports when ``names``
+    holds ``"import"``; blank lines dropped."""
     tree = ast.parse(source)
     lines = source.splitlines()
     drop = set()
@@ -81,9 +101,16 @@ def _strip(source: str, names) -> list:
                     if (isinstance(sub, ast.FunctionDef)
                             and f"{node.name}.{sub.name}" in names):
                         span(sub)
-        elif isinstance(node, ast.Assign) and any(
-            isinstance(t, ast.Name) and t.id in names for t in node.targets
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)) and any(
+            isinstance(t, ast.Name) and t.id in names
+            for t in getattr(node, "targets", [getattr(node, "target", None)])
         ):
+            span(node)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            if "import" in names:
+                span(node)
+        elif (isinstance(node, ast.Expr) and isinstance(node.value, ast.Call)
+              and ast.unparse(node.value.func) in names):
             span(node)
     return [
         line for n, line in enumerate(lines, 1)

@@ -202,9 +202,9 @@ def test_device_resolution_never_falls_back():
 
 def test_slice_imports_no_jax_fugu_tpu_or_triton(namespace, tmp_path):
     """A fresh interpreter runs the port's slice on the CPU (build a
-    segment, commit it, open it, search it) without importing JAX,
-    fugu_tpu or Triton; the conftest of this suite imports JAX, hence
-    the subprocess."""
+    segment, commit it, open it, search it, stream a phrase batch)
+    without importing JAX, fugu_tpu or Triton; the conftest of this
+    suite imports JAX, hence the subprocess."""
     script = textwrap.dedent(f"""
         import sys
         from pathlib import Path
@@ -227,6 +227,17 @@ def test_slice_imports_no_jax_fugu_tpu_or_triton(namespace, tmp_path):
                 exp = oracle.search(ni.segments, p, 10, ni.stats())
                 assert [(h.score, h.doc) for h in g] == [
                     (h.score, h.doc) for h in exp]
+        # the phrase stream (its plain kernel version on the CPU)
+        import torch
+        from fugu_tpu_torch.ops import phrase_stream
+
+        seg = ni.segments[0]
+        plans = chip_smoke.make_phrase_batch(seg)
+        got = phrase_stream.batch_phrase_search(
+            seg, plans, ni.stats(), [10] * len(plans), torch.device("cpu"))
+        for p, g in zip(plans, got):
+            exp = oracle.search([seg], p, 10, ni.stats())
+            assert g == [(h.score, h.doc) for h in exp]
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "fugu_tpu",
                                             "triton"))
