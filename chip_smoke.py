@@ -25,7 +25,20 @@ no CUDA device exists or the checkout is missing.  Phases:
    the phrase kernel with and without slop, and equal the oracle;
 5. warm QPS of the mix, the phrase batch's wall time against the host
    matcher's, and each kernel's time against its plain version's,
-   replaying the calls the main path made.
+   replaying the calls the main path made;
+6. the write path: a ``DatasetManager`` namespace on the card ingests
+   262,144 of bench.py's ingest records in 8 batches through
+   ``Dataset.ingest``, overwrites 2,048 ids and deletes 2,048 more, and
+   answers a 256-query batch of query strings through
+   ``Dataset.search_many``; then the docs index compacts (the merged
+   entry pack rebuilt on the card by the device merge, which must equal a
+   fresh upload bit for bit), and the namespace spills to a ``file://``
+   prefix and restores.  The batch runs before compaction, after it and
+   after the restore, and every result (id and score) must equal the
+   oracle over the same snapshot; phase A and the block scorer must have
+   run.  It prints ingest records/s, the segments before and after
+   compaction, the pass's seconds, the device merge against the host
+   upload of the merged pack, and the batch's warm QPS.
 
 The last lines are a JSON object per kernel, the card line, and
 ``{"ok": true, "device": {...}}``.  Every number printed is measured in
@@ -58,6 +71,12 @@ SCORER_RTOL = 1e-6
 #: the phrase kernel and its plain version compute IEEE f32 scores from
 #: the same integer phrase tf, so their maxima must agree bit for bit
 PHRASE_ATOL = 0.0
+#: the write path: records ingested (in WRITE_BATCHES batches), then
+#: ids overwritten and ids deleted; results per query of its batch
+WRITE_RECORDS = 262_144
+WRITE_BATCHES = 8
+WRITE_CHURN = 2_048
+WRITE_PAGE = 10
 #: the check segment's doc that spans several 2048-row stream chunks
 LONG_PAIR = ("t00005", "t00007")
 LONG_DOC = " ".join([" ".join(LONG_PAIR)] * 1500)
@@ -81,27 +100,33 @@ def card_line() -> str:
     return out[0].strip()
 
 
+def zipf_texts(n_docs: int, rng, vocab_size: int):
+    """bench.py's doc texts: Zipf 1.07 over ``vocab_size`` terms,
+    Poisson(55) lengths clipped to [5, 200]."""
+    vocab = np.array([f"t{i:05d}" for i in range(vocab_size)])
+    p = 1.0 / np.arange(1, vocab_size + 1) ** 1.07
+    p /= p.sum()
+    lens = np.clip(rng.poisson(MEAN_DOC_LEN, n_docs), 5, 200)
+    starts = np.zeros(n_docs + 1, dtype=np.int64)
+    np.cumsum(lens, out=starts[1:])
+    words = vocab[rng.choice(vocab_size, size=int(starts[-1]), p=p)]
+    return [" ".join(words[starts[i]:starts[i + 1]]) for i in range(n_docs)]
+
+
 def build_corpus(n_docs: int, seed: int, vocab_size: int, extra=()):
     """bench.py's synthetic Zipfian corpus (bench.py:138-178), built with
-    the port's SegmentBuilder: Zipf 1.07 vocabulary, Poisson(55) doc
-    lengths clipped to [5, 200], one of 20 facet sources per doc; the
-    texts of ``extra`` follow as more docs."""
+    the port's SegmentBuilder: :func:`zipf_texts`, one of 20 facet
+    sources per doc; the texts of ``extra`` follow as more docs."""
     from fugu_tpu_torch.index.schema import DOCS_SCHEMA
     from fugu_tpu_torch.index.segment import SegmentBuilder
 
     rng = np.random.default_rng(seed)
-    vocab = np.array([f"t{i:05d}" for i in range(vocab_size)])
-    p = 1.0 / np.arange(1, vocab_size + 1) ** 1.07
-    p /= p.sum()
     b = SegmentBuilder(DOCS_SCHEMA)
-    lens = np.clip(rng.poisson(MEAN_DOC_LEN, n_docs), 5, 200)
-    starts = np.zeros(n_docs + 1, dtype=np.int64)
-    np.cumsum(lens, out=starts[1:])
-    all_words = vocab[rng.choice(vocab_size, size=int(starts[-1]), p=p)]
+    texts = zipf_texts(n_docs, rng, vocab_size)
     srcs = rng.integers(0, 20, n_docs)
-    for i in range(n_docs):
+    for i, text in enumerate(texts):
         b.add_document(
-            {"text": [" ".join(all_words[starts[i] : starts[i + 1]])]},
+            {"text": [text]},
             facets=[f"/source/{int(srcs[i])}"],
             stored={"id": f"d{i}"},
         )
@@ -588,6 +613,268 @@ def phase_phrase_batch(ni, seg, stats, tag):
     return calls, launches
 
 
+def make_records(ids, seed: int, namespace: str, vocab_size=VOCAB_SIZE):
+    """bench.py's ingest records (bench.py:107-121) for ``ids``:
+    :func:`zipf_texts`, ``metadata.source`` one of 20.  The facet
+    derivation turns ``metadata.source`` into the single path
+    ``/metadata/source``, so each record also names its source as
+    ``data_type``: the facet filters pick one of the 20 paths
+    ``/namespace/<namespace>/data/src<k>``."""
+    from fugu_tpu_torch.records import ObjectRecord
+
+    texts = zipf_texts(len(ids), np.random.default_rng(seed), vocab_size)
+    return [
+        ObjectRecord(
+            id=f"d{int(i)}",
+            text=text,
+            namespace=namespace,
+            data_type=f"src{int(i) % 20}",
+            metadata={"source": str(int(i) % 20)},
+        )
+        for i, text in zip(ids, texts)
+    ]
+
+
+def make_query_strings(seg, namespace: str, n_queries: int = 256,
+                       seed_offset: int = 3):
+    """bench.py's query classes as query strings with filters, [(query,
+    filters)]: should (one to four df-weighted terms), ``+a +b``,
+    ``a -b``, facet filters through ``filters``, and quoted phrases, in
+    the proportions 128 : 40 : 32 : 32 : 24."""
+    rng = np.random.default_rng(SEED + seed_offset)
+    pick = df_picker(seg, rng)
+    counts = {"should": 128, "must": 40, "mustnot": 32, "facet": 32,
+              "phrase": 24}
+    scale = n_queries / sum(counts.values())
+    out = []
+    for cls, n in counts.items():
+        for _ in range(max(int(n * scale), 1)):
+            if cls == "should":
+                out.append((" ".join(pick(int(rng.integers(1, 5)))), []))
+            elif cls == "must":
+                words = pick(int(rng.integers(2, 4)))
+                out.append((" ".join("+" + w for w in words), []))
+            elif cls == "mustnot":
+                *keep, drop = pick(int(rng.integers(2, 4)))
+                out.append((" ".join(keep) + " -" + drop, []))
+            elif cls == "facet":
+                src = int(rng.integers(0, 20))
+                out.append((" ".join(pick(int(rng.integers(1, 4)))),
+                            [f"/namespace/{namespace}/data/src{src}"]))
+            else:
+                out.append(('"' + " ".join(pick(2)) + '"', []))
+    return out[:n_queries]
+
+
+def sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def check_search_many(ds, queries, got, label, tag):
+    """Every result of ``got`` (``ds.search_many(queries, 0,
+    WRITE_PAGE)``) must equal the oracle over the same snapshot's plans,
+    id and score bit for bit."""
+    from fugu_tpu_torch.ops import oracle
+
+    segs = ds.docs().searcher_segments()
+    stats = ds.docs().stats_for(segs)
+
+    def want(query):
+        plan = ds.build_search_plan(query[0], query[1], False)
+        return [(segs[h.segment_ord].stored[h.doc]["id"], np.float32(h.score))
+                for h in oracle.search(segs, plan, WRITE_PAGE, stats)]
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        exps = list(pool.map(want, queries))
+    t_oracle = time.perf_counter() - t0
+    n_ok = sum(
+        [(r.id, np.float32(r.score)) for r in res] == exp
+        for res, exp in zip(got, exps)
+    )
+    log(f"write path {tag}: {label}: {n_ok}/{len(queries)} results equal "
+        f"the oracle in id and score (oracle {t_oracle:.1f} s)")
+    if n_ok != len(queries):
+        fail(f"write path, {label}: only {n_ok}/{len(queries)} results "
+             f"equal the oracle")
+
+
+def phase_write_path(device, tag, work: Path, n_records: int = WRITE_RECORDS,
+                     n_batches: int = WRITE_BATCHES, n_churn: int = WRITE_CHURN,
+                     vocab_size: int = VOCAB_SIZE, n_queries: int = 256):
+    """Phase 6: the namespace write path through ``DatasetManager`` on
+    ``device`` (see the module docstring); returns the launches of phase
+    A and the block scorer in the warm passes of the query batch."""
+    from fugu_tpu_torch.config import ServerConfig
+    from fugu_tpu_torch.engine.manager import DatasetManager
+    from fugu_tpu_torch.ops import batch_scorer as ba
+    from fugu_tpu_torch.ops import block_scorer as bs
+    from fugu_tpu_torch.ops import device_merge
+
+    ns = "smoke"
+    cfg = ServerConfig.with_defaults(str(work / "data"), ns)
+    cfg.compaction = "off"
+    mgr = DatasetManager(cfg, device=device)
+    ds = mgr.get_or_create_dataset(ns)
+    try:
+        ids = np.arange(n_records)
+        step = n_records // n_batches
+        batches = [make_records(ids[lo:lo + step], SEED + 200 + b, ns,
+                                vocab_size)
+                   for b, lo in enumerate(range(0, n_records, step))]
+        t0 = time.perf_counter()
+        for batch in batches:
+            ds.ingest(batch)
+        t_ingest = time.perf_counter() - t0
+        del batches
+        rng = np.random.default_rng(SEED + 210)
+        churn = rng.choice(n_records, size=2 * n_churn, replace=False)
+        t0 = time.perf_counter()
+        ds.ingest(make_records(churn[:n_churn], SEED + 211, ns, vocab_size))
+        t_over = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in churn[n_churn:]:
+            ds.delete_document(f"d{int(i)}")
+        t_del = time.perf_counter() - t0
+        docs = ds.docs()
+        st = ds.stats()
+        if st.docs_count != n_records - n_churn:
+            fail(f"write path: {st.docs_count} live docs, want "
+                 f"{n_records - n_churn}")
+        log(f"ingest {tag}: {n_records} records in {n_batches} batches "
+            f"{t_ingest:.1f} s, {n_records / t_ingest:.1f} records/s (three "
+            f"indexes); overwrite of {n_churn} ids {t_over:.2f} s; "
+            f"{n_churn} deletes {t_del:.2f} s; docs index "
+            f"{[s.doc_count for s in docs.segments]} docs per segment, "
+            f"stats {st.to_dict()}")
+
+        queries = make_query_strings(docs.segments[0], ns, n_queries)
+
+        def run():
+            out = ds.search_many(queries, 0, WRITE_PAGE)
+            sync(device)
+            return out
+
+        t0 = time.perf_counter()
+        cold = run()
+        t_cold = time.perf_counter() - t0
+        bs.launches = 0
+        ba.launches = 0
+        docs.routes.clear()
+        passes = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            warm = run()
+            passes.append(time.perf_counter() - t0)
+        launches = {"block_scorer": bs.launches, "phase_a": ba.launches}
+        routes = dict(docs.routes)
+        if device.type == "cuda" and min(launches.values()) <= 0:
+            fail(f"the write path's batch launched {launches}")
+        if cold != warm:
+            fail("write path: cold and warm results differ")
+        check_search_many(ds, queries, warm, "before compaction", tag)
+        med = sorted(passes)[1]
+        log(f"write path QPS {tag}: warm search_many of {len(queries)} "
+            f"query strings over {len(docs.segments)} segments "
+            f"{len(queries) / med:.1f} QPS (median of passes "
+            f"{[round(x, 4) for x in passes]} s; cold pass {t_cold:.2f} s);"
+            f" plans per route over 3 passes {routes}; launches {launches}")
+
+        # compaction with every source pack resident on the device
+        n_before = [s.doc_count for s in docs.segments]
+        candidates = docs.merge_policy.select(docs.segments)
+        if not candidates:
+            fail(f"write path: no merge candidates among {n_before}")
+        srcs = [docs.segments[i] for i in candidates[0]]
+        # the device merge runs only when every source's pack is resident;
+        # a source below DEVICE_MIN_ENTRIES never served from the device
+        n_resident = sum(s._device_pack is not None for s in srcs)
+        for s in srcs:
+            s.device_pack(device)
+        device_merge.launches = 0
+        with Recorder(device_merge, "device_merge_entries") as rec:
+            t0 = time.perf_counter()
+            if not docs.run_compaction_pass():
+                fail("write path: the compaction pass merged nothing")
+            sync(device)
+            t_pass = time.perf_counter() - t0
+        merges = device_merge.launches
+        if merges != 1 or len(rec.calls) != 1:
+            fail(f"write path: {merges} device merges in the pass")
+        merged = rec.calls[0][2]
+        if not any(s is merged for s in docs.segments):
+            fail("write path: the merged segment is not live")
+        attached = merged._device_pack
+        if attached is None:
+            fail("write path: no device-merged pack attached")
+
+        def fresh_upload():
+            merged._device_pack = None
+            t0 = time.perf_counter()
+            pack = merged.device_pack(device)
+            sync(device)
+            return time.perf_counter() - t0, pack
+
+        ups = [fresh_upload() for _ in range(3)]
+        fresh = ups[-1][1]
+        for name in ("e_doc", "e_tffid", "tomb"):
+            a, b = getattr(attached, name), getattr(fresh, name)
+            if a.shape != b.shape or not bool((a == b).all()):
+                fail(f"write path: device-merged {name} differs from a "
+                     f"fresh upload")
+        merge_times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            device_merge.device_merge_entries(*rec.calls[0])
+            sync(device)
+            merge_times.append(time.perf_counter() - t0)
+        merged._device_pack = attached
+        t_merge = sorted(merge_times)[1]
+        t_up = sorted(t for t, _p in ups)[1]
+        log(f"compaction {tag}: docs segments {n_before} -> "
+            f"{[s.doc_count for s in docs.segments]}; pass {t_pass:.2f} s; "
+            f"device merge of {merged.n_entries} postings from "
+            f"{len(srcs)} resident packs ({n_resident} resident after the "
+            f"queries) equals a fresh upload bit for bit "
+            f"(e_doc, e_tffid, tomb); device merge {t_merge * 1e3:.3f} ms "
+            f"vs host upload of the merged pack {t_up * 1e3:.3f} ms "
+            f"(medians of 3, {[round(x * 1e3, 3) for x in merge_times]} vs "
+            f"{[round(t * 1e3, 3) for t, _p in ups]} ms)")
+        passes = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            after = run()
+            passes.append(time.perf_counter() - t0)
+        check_search_many(ds, queries, after, "after compaction", tag)
+        log(f"write path QPS {tag}: after compaction, warm search_many "
+            f"over {len(docs.segments)} segments "
+            f"{len(queries) / sorted(passes)[1]:.1f} QPS (median of passes "
+            f"{[round(x, 4) for x in passes]} s, the first one uploading the "
+            f"merged segment's block-major pack)")
+
+        # spill to a file:// prefix and restore
+        prefix = f"file://{work / 'cold'}"
+        t0 = time.perf_counter()
+        spilled = ds.spill(prefix)
+        t_spill = time.perf_counter() - t0
+        if not ds.has_cold_segments or docs.segments:
+            fail("write path: the spill left segments warm")
+        t0 = time.perf_counter()
+        restored = ds.restore(prefix)
+        t_restore = time.perf_counter() - t0
+        if restored != spilled:
+            fail(f"write path: spilled {spilled}, restored {restored}")
+        log(f"spill {tag}: {spilled} segments spilled in {t_spill:.2f} s, "
+            f"restored in {t_restore:.2f} s")
+        check_search_many(ds, queries, run(), "after spill and restore", tag)
+        return launches
+    finally:
+        mgr.close()
+
+
 def main() -> None:
     if not (REPO / "fugu_tpu_torch" / "__init__.py").exists():
         fail(f"no fugu_tpu_torch package beside {Path(__file__).name}")
@@ -737,6 +1024,12 @@ def main() -> None:
         for k, check_err in zip(kernels, (scorer_err, phasea_err,
                                           phrase_err)):
             k["max_abs_err"] = max(k["max_abs_err"], check_err)
+        del ni, seg, stats
+
+        # phase 6: the namespace write path
+        write_launches = phase_write_path(device, tag, work / "write")
+        log(f"write path {tag}: kernel launches in its warm passes "
+            f"{write_launches}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -202,9 +202,12 @@ def test_device_resolution_never_falls_back():
 
 def test_slice_imports_no_jax_fugu_tpu_or_triton(namespace, tmp_path):
     """A fresh interpreter runs the port's slice on the CPU (build a
-    segment, commit it, open it, search it, stream a phrase batch)
-    without importing JAX, fugu_tpu or Triton; the conftest of this
-    suite imports JAX, hence the subprocess."""
+    segment, commit it, open it, search it, stream a phrase batch) and
+    the smoke's write-path phase at a small size (DatasetManager ingest,
+    overwrite, delete, compaction with the device merge, spill and
+    restore, search_many against the oracle) without importing JAX,
+    fugu_tpu, Triton or PyYAML; the conftest of this suite imports JAX,
+    hence the subprocess."""
     script = textwrap.dedent(f"""
         import sys
         from pathlib import Path
@@ -238,9 +241,17 @@ def test_slice_imports_no_jax_fugu_tpu_or_triton(namespace, tmp_path):
         for p, g in zip(plans, got):
             exp = oracle.search([seg], p, 10, ni.stats())
             assert g == [(h.score, h.doc) for h in exp]
+        # the write path through DatasetManager, as the smoke drives it
+        from fugu_tpu_torch.ops import device_merge
+
+        chip_smoke.phase_write_path(
+            torch.device("cpu"), "[cpu]", Path({str(tmp_path)!r}) / "w",
+            n_records=2048, n_batches=8, n_churn=32, vocab_size=2000,
+            n_queries=48)
+        assert device_merge.launches >= 4
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "fugu_tpu",
-                                            "triton"))
+                                            "triton", "yaml"))
         print("LOADED", bad)
         assert not bad, bad
     """)
