@@ -10,11 +10,15 @@ no CUDA device exists or the checkout is missing.  Phases:
    checkout's sources;
 3. each kernel against its plain PyTorch version on the card, on a
    seeded 50k-doc segment with one doc that spans several stream
-   chunks: the block scorer (dense and top-128 modes, 4- and 16-clause
-   rows, MUST / MUST_NOT / SHOULD, tombstones), phase A (narrow, wide
-   and packed lanes; fine = 2 and 4) and the phrase kernel (slop 0 and
-   sloppy dispatches, every kmax bucket, 64 and 256 query lanes), plus
-   the phrase kernel on a segment of pervasive ties;
+   chunks and one of 100 distinct terms: the block scorer (k = 16, 32,
+   64 and 128, 4- and 16-clause rows, MUST / MUST_NOT / SHOULD, with the
+   segment's tombstones and with none, and a segment of docs tied at the
+   kth), phase A (narrow, wide and packed lanes at fine 1, 2, 4 and 8,
+   a head term in 160 queries of one stream, a union at the largest
+   ``U_BUCKETS`` rung, and two runs of each launch that must give the
+   same bits) and the phrase kernel (slop 0 and sloppy dispatches,
+   every kmax bucket, 64 and 256 query lanes), plus the phrase kernel
+   on a segment of pervasive ties;
 4. the main path: a seeded 1M-doc corpus (bench.py's generator) is
    committed to a namespace directory, opened with the port's
    ``NamedIndex`` and queried with bench.py's 256-query mix through
@@ -24,8 +28,12 @@ no CUDA device exists or the checkout is missing.  Phases:
    ``search_topk_batch``: it must be routed to the phrase stream, run
    the phrase kernel with and without slop, and equal the oracle;
 5. warm QPS of the mix, the phrase batch's wall time against the host
-   matcher's, and each kernel's time against its plain version's,
-   replaying the calls the main path made;
+   matcher's, and each kernel's time against its plain version's and
+   its bound (the bytes its calls must move at 3.35 TB/s, or their
+   operations at 67 TFLOP/s f32, whichever is longer), replaying the
+   calls the main path made; each block-scorer launch's time and shape;
+   the block scorer once more on a row over every block of the 1M
+   segment;
 6. the write path: a ``DatasetManager`` namespace on the card ingests
    262,144 of bench.py's ingest records in 8 batches through
    ``Dataset.ingest``, overwrites 2,048 ids and deletes 2,048 more, and
@@ -40,9 +48,13 @@ no CUDA device exists or the checkout is missing.  Phases:
    compaction, the pass's seconds, the device merge against the host
    upload of the merged pack, and the batch's warm QPS.
 
-The last lines are a JSON object per kernel, the card line, and
-``{"ok": true, "device": {...}}``.  Every number printed is measured in
-this run, on the card named beside it.
+The last lines are the ``kernels`` JSON line (per kernel: launches in
+the 3 warm passes and per pass, ms and plain ms per warm pass, the
+bound in ms with its bytes and operations, the roofline share, and
+``library_ms`` null, since no single PyTorch call computes any of the
+three), the card line, and ``{"ok": true, "device": {...}}``.  Every
+number printed is measured in this run, on the card named beside it,
+but the bounds, which are computed from the recorded calls' arguments.
 """
 
 from __future__ import annotations
@@ -64,13 +76,17 @@ CHECK_DOCS = 50_000
 SEED = 7
 VOCAB_SIZE = 30_000
 MEAN_DOC_LEN = 55
-#: relative tolerance of the block scorer against its plain version: both
-#: sum the same f32 terms in clause order with IEEE division, so the
-#: expected difference is 0; this bounds a last-ulp difference only
-SCORER_RTOL = 1e-6
+#: the block scorer and its plain version sum the same f32 terms in
+#: clause order with IEEE division and select by the same strict order,
+#: so their top-k docs must be identical and their scores bit-identical
+SCORER_ATOL = 0.0
 #: the phrase kernel and its plain version compute IEEE f32 scores from
 #: the same integer phrase tf, so their maxima must agree bit for bit
 PHRASE_ATOL = 0.0
+#: the card's peaks for the bounds (the H100 SXM data sheet): device
+#: memory bytes/s and f32 operations/s outside the tensor cores
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
 #: the write path: records ingested (in WRITE_BATCHES batches), then
 #: ids overwritten and ids deleted; results per query of its batch
 WRITE_RECORDS = 262_144
@@ -80,6 +96,9 @@ WRITE_PAGE = 10
 #: the check segment's doc that spans several 2048-row stream chunks
 LONG_PAIR = ("t00005", "t00007")
 LONG_DOC = " ".join([" ".join(LONG_PAIR)] * 1500)
+#: the check segment's doc with more distinct terms than a warp has
+#: threads (phase A visits a doc's entries 32 at a time)
+WIDE_DOC = " ".join(f"t{i:05d}" for i in range(100))
 
 
 def fail(msg: str) -> None:
@@ -174,6 +193,15 @@ def make_phrase_batch(seg, seed_offset: int = 2):
     return plans
 
 
+def should_plan(words):
+    """SHOULD clauses over the text field, one per word."""
+    from fugu_tpu_torch.query import Occur, QueryGroup, QueryPlan, TermClause
+
+    return QueryPlan(groups=tuple(
+        QueryGroup(Occur.SHOULD, (TermClause("text", t),)) for t in words
+    ))
+
+
 def make_query_mix(seg, n_queries: int = 256, seed_offset: int = 1):
     """bench.py's 256-query mix (bench.py:181-279): [(class, plan, limit)]
     with should/must/mustnot/facet/phrase classes at limit 10 and a
@@ -184,11 +212,6 @@ def make_query_mix(seg, n_queries: int = 256, seed_offset: int = 1):
 
     rng = np.random.default_rng(SEED + seed_offset)
     pick = df_picker(seg, rng)
-
-    def should_plan(words):
-        return QueryPlan(groups=tuple(
-            QueryGroup(Occur.SHOULD, (TermClause("text", t),)) for t in words
-        ))
 
     counts = {"should": 120, "must": 40, "mustnot": 24, "facet": 32,
               "phrase": 24, "limit100": 16}
@@ -270,41 +293,34 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def compare_scorer(args, bs):
-    """max |kernel - plain| of one recorded block-scorer call; fails on
-    any difference in which docs are candidates."""
+    """max |kernel - plain| of one recorded block-scorer call; fails
+    unless the top-k docs are identical and the scores bit-identical."""
     import torch
 
-    *ins, need_bits, topk = args
-    got = bs.score_rows(*ins, need_bits, topk)
-    ref = bs.score_rows_plain(*ins, need_bits, topk)
+    *ins, need_bits, k = args
+    gk, gd = bs.score_rows(*ins, need_bits, k)
+    rk, rd = bs.score_rows_plain(*ins, need_bits, k)
     torch.cuda.synchronize()
-    if topk:
-        (gk, gd), (rk, rd) = got, ref
-        if not torch.equal(gd, rd):
-            fail("block scorer top-128: candidate docs differ from plain")
-        g, r = gk, rk
-    else:
-        g, r = got, ref
-    fin = torch.isfinite(r)
-    if not torch.equal(fin, torch.isfinite(g)):
-        fail("block scorer: matched docs differ from plain")
-    if not fin.any():
-        return 0.0
-    err = float((g[fin] - r[fin]).abs().max())
-    scale = float(r[fin].abs().max())
-    if err > SCORER_RTOL * scale:
-        fail(f"block scorer: max abs err {err} > {SCORER_RTOL} x {scale}")
-    return err
+    if not torch.equal(gd, rd):
+        fail(f"block scorer k={k}: top-k docs differ from plain")
+    if not torch.equal(gk.view(torch.int32), rk.view(torch.int32)):
+        fail(f"block scorer k={k}: scores are not bit-identical to plain")
+    fin = torch.isfinite(rk)
+    return float((gk[fin] - rk[fin]).abs().max()) if fin.any() else 0.0
 
 
 def compare_phasea(args, ba):
     """max |kernel - plain| of one recorded phase-A call; the contract is
-    the bf16 margin (MARGIN_REL, MARGIN_ABS) of batch_scorer."""
+    the bf16 margin (MARGIN_REL, MARGIN_ABS) of batch_scorer, and a
+    second run of the kernel must give the same bits."""
     import torch
 
     got = ba.phasea(*args)
+    again = ba.phasea(*args)
     ref = ba.phasea_plain(*args)
     torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        fail("phase A: two runs on the same inputs differ")
     fin = torch.isfinite(ref)
     if not torch.equal(fin, torch.isfinite(got)):
         fail("phase A: finite maxima differ from plain")
@@ -333,6 +349,58 @@ def compare_phrase(args, ps):
     return float((gmax[fin] - rmax[fin]).abs().max()) if fin.any() else 0.0
 
 
+def scorer_cost(args):
+    """(bytes, operations) one block-scorer call must move and do: its
+    rows' posting entries (doc and tf | fid, 8 bytes each), each (row,
+    block)'s 2048 tombstone flags and the k (score, doc) pairs a row;
+    six operations a posting (two adds, two multiplies, a division and
+    the sum)."""
+    import torch
+
+    nblocks, block_ids, _st, counts, *_rest, k = args
+    listed = (torch.arange(block_ids.shape[1], device=counts.device)[None, :]
+              < nblocks[:, None])
+    entries = int((counts * listed[:, :, None]).sum())
+    n_blocks = int(nblocks.sum())
+    nbytes = entries * 8 + n_blocks * 2048 * 4 + nblocks.numel() * k * 8
+    return nbytes, 6 * entries
+
+
+def phasea_cost(args):
+    """(bytes, operations) one phase-A call must move and do: its real
+    entries (doc, term id and bf16 contribution, 10 bytes each; the chunk
+    padding is no work), W and the maxima; two operations per nonzero
+    product of W's row and a live entry."""
+    import torch
+
+    doc_offs, _doc, tid, _con, w, nz_off, _nz, slot_of, nm, fine = args
+    real = int((doc_offs[:, -1] - doc_offs[:, 0]).sum())
+    t = tid[:int(doc_offs[-1, -1])].long()
+    n_terms = slot_of.numel()
+    slot = torch.where((t >= 0) & (t < n_terms),
+                       slot_of[t.clamp(0, n_terms - 1)], -1).long()
+    per_slot = (nz_off[1:] - nz_off[:-1]).long()
+    products = int(per_slot[slot[slot >= 0]].sum())
+    out = doc_offs.shape[0] * fine * nm.numel() * 4
+    return real * 10 + w.numel() * 2 + out, 2 * products
+
+
+def phrase_cost(args):
+    """(bytes, operations) one phrase-kernel call must move and do: the
+    stream's real token rows (4 bytes each; sentinel rows are no work),
+    each streamed block's 512 docs' ``cv`` and ``fid`` and the maxima
+    and classes; one term lookup a token."""
+    from fugu_tpu_torch.index.segment import BM_BLOCK_DOCS, BM_CHUNK
+    from fugu_tpu_torch.ops.phrase_stream import FINE_PER_BLOCK, TID_MASK
+
+    offs, tok, _cv, _fid, qterm, *_rest = args
+    rows = tok[:int(offs[-1]) * BM_CHUNK]
+    real = int(((rows & TID_MASK) != TID_MASK).sum())
+    streamed = int((offs[1:] > offs[:-1]).sum())
+    out = (offs.numel() - 1) * FINE_PER_BLOCK * qterm.shape[0] * 8
+    return real * 4 + streamed * BM_BLOCK_DOCS * 8 + out, real
+
+
 def hits_key(pairs):
     """(f32 score, doc) list: the bit-level identity of a result."""
     return [(np.float32(s), int(d)) for s, d in pairs]
@@ -341,16 +409,22 @@ def hits_key(pairs):
 def phase_kernels(device, tag):
     """Phase 3: both kernels against their plain versions, on the card,
     on a seeded 50k-doc segment; also the engines' hits vs the oracle."""
+    import torch
+
+    from fugu_tpu_torch.index.schema import DOCS_SCHEMA
+    from fugu_tpu_torch.index.segment import SegmentBuilder
     from fugu_tpu_torch.ops import batch_scorer as ba
     from fugu_tpu_torch.ops import block_scorer as bs
     from fugu_tpu_torch.ops import oracle
     from fugu_tpu_torch.query import Occur, QueryGroup, QueryPlan, TermClause
 
-    seg = build_corpus(CHECK_DOCS, SEED + 100, 2_000, extra=(LONG_DOC,))
+    seg = build_corpus(CHECK_DOCS, SEED + 100, 2_000,
+                       extra=(LONG_DOC, WIDE_DOC))
     seg.tombstones[::37] = True
     stats = oracle.IndexStats([seg])
     rng = np.random.default_rng(SEED + 101)
-    terms = sorted(seg.terms["text"].keys())[:400]
+    vocab = sorted(seg.terms["text"].keys())
+    terms = vocab[:400]
 
     def g(occ, t):
         return QueryGroup(occ, (TermClause("text", t),))
@@ -379,40 +453,75 @@ def phase_kernels(device, tag):
                 g(Occur.MUST, more[9]), g(Occur.MUST_NOT, more[10])]
         plans.append(QueryPlan(groups=tuple(groups)))
 
+    # a segment whose blocks hold hundreds of docs tied at the kth
+    b = SegmentBuilder(DOCS_SCHEMA)
+    for i in range(20_000):
+        text = ("foo bar qux", f"foo baz w{i % 5}", "baz zed w1")[i % 4 % 3]
+        b.add_document({"text": [text]}, stored={"id": f"t{i}"})
+    tied = b.build()
+    tied.tombstones[::29] = True
+    tied_plans = [QueryPlan(groups=tuple(gs)) for gs in (
+        [g(Occur.SHOULD, "foo"), g(Occur.SHOULD, "bar")],
+        [g(Occur.SHOULD, "baz")],
+        [g(Occur.MUST, "foo"), g(Occur.SHOULD, "qux")],
+        [g(Occur.SHOULD, "foo"), g(Occur.MUST_NOT, "bar")],
+    )]
+
     scorer_err, phasea_err = 0.0, 0.0
-    n_checked = {"dense": 0, "top128": 0, "t4": 0, "t16": 0}
-    for limit in (10, 100):
+    n_checked = {"k16": 0, "k32": 0, "k64": 0, "k128": 0, "t4": 0,
+                 "t16": 0, "no tombstones": 0, "ties": 0}
+
+    def check_scorer(s, plan_set, limit, ties=False):
+        """block_search_batch at ``limit``: every launch against the plain
+        version, with the segment's tombstones and with none, and every
+        hit list against the oracle."""
+        nonlocal scorer_err
+        st = oracle.IndexStats([s])
         with Recorder(bs, "score_rows") as rec:
-            got = bs.block_search_batch(seg, plans, stats, limit, device)
+            got = bs.block_search_batch(s, plan_set, st, limit, device)
         for args in rec.calls:
             scorer_err = max(scorer_err, compare_scorer(args, bs))
-            n_checked["top128" if args[-1] else "dense"] += 1
+            live = args[:11] + (torch.zeros_like(args[11]),) + args[12:]
+            scorer_err = max(scorer_err, compare_scorer(live, bs))
+            n_checked[f"k{args[-1]}"] += 1
             n_checked[f"t{args[4].shape[1]}"] += 1
-        for plan, hits in zip(plans, got):
+            n_checked["no tombstones"] += 1
+            n_checked["ties"] += ties
+        for plan, hits in zip(plan_set, got):
             if hits is None:
                 fail("block scorer declined a plan it should take")
             exp = [(h.score, h.doc)
-                   for h in oracle.search([seg], plan, limit, stats)]
+                   for h in oracle.search([s], plan, limit, st)]
             if hits_key(hits) != hits_key(exp):
                 fail(f"block scorer hits differ from the oracle (limit {limit})")
+
+    for limit in (10, 20, 50, 100):  # k = 16, 32, 64, 128
+        check_scorer(seg, plans, limit)
+    for limit in (10, 100):
+        check_scorer(tied, tied_plans, limit, ties=True)
     for key, n in n_checked.items():
         if n == 0:
             fail(f"block scorer check never ran a {key} launch")
 
-    fines = set()
+    fines, lane_calls = set(), {}
+    head_nnz, u_top = 0, 0
 
     def record_phasea(plan_set, limit, mode, name):
         """batch_search over ``plan_set``; every phase-A launch is held
         against the plain version, and one must use lane ``mode``."""
-        nonlocal phasea_err
+        nonlocal phasea_err, head_nnz, u_top
         with Recorder(ba, "phasea") as rec:
             got = ba.batch_search(seg, plan_set, stats,
                                   [limit] * len(plan_set), device)
         modes = set()
         for args in rec.calls:
             phasea_err = max(phasea_err, compare_phasea(args, ba))
-            modes.add(ba._lane_mode(args[4].shape[1], args[6].numel()))
-            fines.add(args[7])
+            m = ba._lane_mode(args[4].shape[1], args[8].numel())
+            modes.add(m)
+            lane_calls.setdefault(m, args)
+            fines.add(args[9])
+            head_nnz = max(head_nnz, int((args[5][1:] - args[5][:-1]).max()))
+            u_top = max(u_top, args[4].shape[0])
         if mode not in modes:
             fail(f"phase-A check of {name} lanes at limit {limit} launched "
                  f"lane modes {modes}")
@@ -434,17 +543,43 @@ def phase_kernels(device, tag):
         g(Occur.MUST, t)
         for t in rng.choice(terms, size=int(rng.integers(2, 4)), replace=False)
     )) for _ in range(160)]
+    # the most frequent term whose idf stays positive (a term in nearly
+    # every doc has df above the live count once docs are tombstoned)
+    text = seg.terms["text"]
+    head = max((t for t in text if text[t].doc_freq <= seg.doc_count // 2),
+               key=lambda t: (text[t].doc_freq, t))
+    heads = [QueryPlan(groups=(g(Occur.SHOULD, head),) + tuple(
+        g(Occur.SHOULD, t)
+        for t in rng.choice(terms, size=int(rng.integers(1, 4)),
+                            replace=False)
+    )) for _ in range(160)]
+    spread = list(rng.permutation(vocab)[:880])  # 880 union terms
+    wide_union = [QueryPlan(groups=tuple(
+        g(Occur.SHOULD, t) for t in spread[4 * i:4 * i + 4]
+    )) for i in range(220)]
     for limit in (10, 100):
         record_phasea(plans, limit, 1, "wide")
     record_phasea(pure, 10, 0, "narrow")
     record_phasea(musts, 10, 2, "packed")
-    if not {2, 4} <= fines:
-        fail(f"phase-A check covered fine {fines}")
+    record_phasea(heads, 10, 0, "head-term narrow")
+    record_phasea(wide_union, 10, 0, "wide-union narrow")
+    if head_nnz < 100 or u_top != ba.U_BUCKETS[-1]:
+        fail(f"phase-A check: most queries on one union term {head_nnz}, "
+             f"largest union rung {u_top}")
+    # every lane mode at every fine granularity
+    for args in lane_calls.values():
+        for fine in (1, 2, 4, 8):
+            phasea_err = max(phasea_err,
+                             compare_phasea(args[:-1] + (fine,), ba))
+            fines.add(fine)
     log(f"kernel check {tag}: block scorer matched its plain version on "
-        f"{sum(n_checked[k] for k in ('dense', 'top128'))} launches "
-        f"({n_checked}), max abs err {scorer_err!r} (tolerance "
-        f"{SCORER_RTOL} relative); phase A matched on lane modes "
-        f"narrow/wide/packed and fine {sorted(fines)}, max abs err "
+        f"{n_checked['no tombstones']} launches, each also with no "
+        f"tombstone ({n_checked}), top-k docs identical and scores "
+        f"bit-identical, max abs err {scorer_err!r} (tolerance "
+        f"{SCORER_ATOL}); phase A matched on lane modes narrow/wide/packed "
+        f"at fine {sorted(fines)}, a head term on {head_nnz} queries of "
+        f"one stream, a {u_top}-slot union and a {len(WIDE_DOC.split())}-"
+        f"term doc, each launch twice with the same bits, max abs err "
         f"{phasea_err!r} (tolerance MARGIN_REL {ba.MARGIN_REL} + "
         f"MARGIN_ABS {ba.MARGIN_ABS})")
     phrase_err = phase_phrase_kernel(device, seg, stats, tag)
@@ -996,34 +1131,74 @@ def main() -> None:
         calls_p, p_launches = phase_phrase_batch(ni, seg, stats, tag)
         launches["phrase_stream"] = p_launches
 
-        # phase 5: kernel vs plain time at the main path's shapes
+        # phase 5: kernel vs plain time and bound at the main path's shapes
         kernels = []
-        for name, calls, mod, run, plain, src, replaces, cmp in (
+        for name, calls, mod, run, plain, src, replaces, cmp, cost in (
             ("block_scorer", calls_s, bs, "score_rows", "score_rows_plain",
              "fugu_tpu_torch/csrc/block_scorer.cu",
-             "fugu_tpu/ops/pallas_scorer.py:225", compare_scorer),
+             "fugu_tpu/ops/pallas_scorer.py:225", compare_scorer,
+             scorer_cost),
             ("phase_a", calls_a, ba, "phasea", "phasea_plain",
              "fugu_tpu_torch/csrc/phasea.cu",
-             "fugu_tpu/ops/batch_scorer.py:195", compare_phasea),
+             "fugu_tpu/ops/batch_scorer.py:195", compare_phasea,
+             phasea_cost),
             ("phrase_stream", calls_p, ps, "phrase_stream",
              "phrase_stream_plain", "fugu_tpu_torch/csrc/phrase.cu",
-             "fugu_tpu/ops/phrase_stream.py:539", compare_phrase),
+             "fugu_tpu/ops/phrase_stream.py:539", compare_phrase,
+             phrase_cost),
         ):
             err = max(cmp(a, mod) for a in calls)
             fk, fp = getattr(mod, run), getattr(mod, plain)
-            ms = sum(cuda_ms(lambda a=a: fk(*a), 5) for a in calls)
+            each = [cuda_ms(lambda a=a: fk(*a), 5) for a in calls]
+            ms = sum(each)
             plain_ms = sum(cuda_ms(lambda a=a: fp(*a), 1) for a in calls)
+            nbytes, ops = (sum(c) for c in zip(*(cost(a) for a in calls)))
+            bound_ms = max(nbytes / HBM_BYTES_S, ops / F32_OPS_S) * 1e3
+            bound_by = ("bytes" if nbytes / HBM_BYTES_S >= ops / F32_OPS_S
+                        else "operations")
             kernels.append({
                 "name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
+                "launches_per_pass": len(calls),
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_bytes": nbytes, "bound_ops": ops,
+                "share": bound_ms / ms, "library_ms": None,
+                "library": "no single PyTorch call computes it",
             })
             log(f"kernel time {tag}: {name} {ms:.3f} ms vs plain "
                 f"{plain_ms:.3f} ms per warm pass of its batch "
-                f"({len(calls)} launches), max abs err {err!r}")
+                f"({len(calls)} launches), bound {bound_ms:.4f} ms by "
+                f"{bound_by} ({nbytes} bytes, {ops} operations), share "
+                f"{bound_ms / ms:.4f}, max abs err {err!r}; library call: "
+                f"none computes it")
+            if name == "block_scorer":
+                for a, t in zip(calls, each):
+                    log(f"  block scorer launch {tag}: {t:.4f} ms, rows "
+                        f"{a[1].shape[0]}, nb_pad {a[1].shape[1]}, t_pad "
+                        f"{a[4].shape[1]}, k {a[-1]}, blocks "
+                        f"{int(a[0].sum())}, max blocks a row "
+                        f"{int(a[0].max())}")
         for k, check_err in zip(kernels, (scorer_err, phasea_err,
                                           phrase_err)):
             k["max_abs_err"] = max(k["max_abs_err"], check_err)
+
+        # the block scorer on a row over every block of the segment
+        text = seg.terms["text"]
+        head = max(text, key=lambda t: (text[t].doc_freq, t))
+        n_blocks = (seg.doc_count + bs.BLOCK - 1) // bs.BLOCK
+        with Recorder(bs, "score_rows") as rec:
+            bs.block_search_batch(seg, [should_plan([head])], stats, 100,
+                                  device)
+        full = [a for a in rec.calls if int(a[0].max()) == n_blocks]
+        if not full:
+            fail(f"no block-scorer row covers all {n_blocks} blocks")
+        full_err = compare_scorer(full[0], bs)
+        kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], full_err)
+        log(f"kernel check {tag}: block scorer on a row over all {n_blocks} "
+            f"blocks (k = {full[0][-1]}) matched its plain version, docs "
+            f"identical and scores bit-identical ({full_err!r}), "
+            f"{cuda_ms(lambda: bs.score_rows(*full[0]), 5):.4f} ms")
         del ni, seg, stats
 
         # phase 6: the namespace write path

@@ -707,39 +707,70 @@ def _evict_block_major(seg: "Segment") -> None:
     object.__setattr__(seg, "_block_major", None)
 
 
+def block_doc_offsets(docs, chunk_offs, n_blocks):
+    """int32[n_blocks, BM_BLOCK_DOCS + 1]: for block j, column l is the
+    pack position of the first entry of doc ``j * BM_BLOCK_DOCS + l`` and
+    the last column the end of the block's real entries (its chunk
+    padding excluded).  ``docs`` are the pack's entries in pack order,
+    doc-major within each block, without the padding."""
+    counts = np.bincount(docs, minlength=n_blocks * BM_BLOCK_DOCS)
+    offs = np.zeros((n_blocks, BM_BLOCK_DOCS + 1), dtype=np.int64)
+    np.cumsum(counts.reshape(n_blocks, BM_BLOCK_DOCS), axis=1,
+              out=offs[:, 1:])
+    offs += np.asarray(chunk_offs[:n_blocks], np.int64)[:, None] * BM_CHUNK
+    return offs.astype(np.int32)
+
+
 class BlockMajorPack:
-    """The corpus re-sorted by (doc block, term) for the batched
+    """The corpus re-sorted by (doc block, doc) for the batched
     corpus-stream scorer (ops/batch_scorer).
 
     Every entry carries (doc, global term id, weight-free BM25
     contribution — see :func:`entry_term_contribs`).  Entries of one
-    512-doc block are contiguous and padded to whole chunks so the
-    kernel streams the pack with aligned double-buffered DMAs.
+    512-doc block are contiguous and padded to whole chunks (the layout
+    the reference's kernel streams); inside a block each doc's entries
+    are contiguous, in ascending doc order, and ``doc_offs``
+    (:func:`block_doc_offsets`) says where each doc starts, so a warp of
+    the phase-A kernel can own a run of docs.
     """
 
     def __init__(self, segment: "Segment", stats, device):
+        import torch
+
         from fugu_tpu_torch.ops import residency
 
         e = segment.n_entries
-        docs = segment.e_doc[:e]
         tid_entry, contrib, self.tid_of, self.n_terms = entry_term_contribs(
             segment, stats
         )
+        # a stable pre-sort by doc, which pack_block_major's stable sort
+        # by block keeps: doc-major blocks, each doc's entries in term
+        # order (torch's threaded sort and gathers: a few times numpy's
+        # speed on the host)
+        def host(a):
+            return torch.from_numpy(np.require(a, requirements="W"))
+
+        docs, order = torch.sort(host(segment.e_doc[:e]), stable=True)
+        docs = docs.numpy()
         bm_doc, bm_tid, bm_con, self.chunk_offs, self.n_blocks = (
-            pack_block_major(docs, tid_entry, contrib, segment.doc_count)
+            pack_block_major(docs, host(tid_entry)[order].numpy(),
+                             host(contrib)[order].numpy(), segment.doc_count)
         )
+        self.doc_offs = block_doc_offsets(docs, self.chunk_offs,
+                                          self.n_blocks)
         residency.reserve(
             ("bm", id(segment)),
-            bm_doc.nbytes + bm_tid.nbytes + bm_con.nbytes // 2,
+            bm_doc.nbytes + bm_tid.nbytes + bm_con.nbytes // 2
+            + self.doc_offs.nbytes,
             segment,
             _evict_block_major,
             kind="block_major",
         )
         # bf16 contributions: one more rounding, covered by MARGIN_REL's
         # budget (ops/batch_scorer.py), for a third less pack memory
-        self.d_doc, self.d_tid, self.d_con, self.d_chunk_offs = (
+        self.d_doc, self.d_tid, self.d_con, self.d_doc_offs = (
             block_major_from_numpy(
-                bm_doc, bm_tid, bm_con, self.chunk_offs, device
+                bm_doc, bm_tid, bm_con, self.doc_offs, device
             )
         )
 
@@ -766,9 +797,10 @@ def device_pack_from_numpy(e_doc, e_tffid, tomb, device) -> EntryPack:
     return EntryPack(up(e_doc), up(e_tffid), up(tomb))
 
 
-def block_major_from_numpy(bm_doc, bm_tid, bm_con, chunk_offs, device):
-    """(doc int32, tid int32, con bf16, chunk_offs int32) tensors on
-    ``device`` from :func:`pack_block_major`'s host arrays."""
+def block_major_from_numpy(bm_doc, bm_tid, bm_con, doc_offs, device):
+    """(doc int32, tid int32, con bf16, doc_offs int32) tensors on
+    ``device`` from :func:`pack_block_major`'s host arrays and
+    :func:`block_doc_offsets`."""
     import torch
 
     def up(a, dtype):
@@ -780,7 +812,7 @@ def block_major_from_numpy(bm_doc, bm_tid, bm_con, chunk_offs, device):
         up(bm_doc, torch.int32),
         up(bm_tid, torch.int32),
         con.to(device=device, dtype=torch.bfloat16),
-        up(chunk_offs, torch.int32),
+        up(doc_offs, torch.int32),
     )
 
 

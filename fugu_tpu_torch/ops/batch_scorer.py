@@ -18,7 +18,9 @@ for every query q, where W is the per-(union term, query) BM25 weight
 matrix and contrib is the precomputed weight-free tf/(tf + norm)
 component.  The scatter/BM25 work is shared by all B queries — the
 batch visits each posting once instead of once per query that contains
-its term.
+its term.  The kernel reads W as per-slot lists of its nonzeros
+(:func:`weight_lists`, built on the host at staging) and the pack
+doc-major inside each block, one doc's entries after another.
 
 **Phase B**: per query, only blocks whose phase-A max can still reach
 the kth score (with a bf16-error margin) are re-scored exactly by the
@@ -61,7 +63,6 @@ import torch
 from fugu_tpu_torch import cuda_build
 from fugu_tpu_torch.index.segment import (
     BM_BLOCK_DOCS,
-    BM_CHUNK,
     FACET_FIELD_KEY,
     Segment,
 )
@@ -74,8 +75,8 @@ from fugu_tpu_torch.query import Occur, QueryPlan, bm25_weight, idf
 # values, to be measured again; no timing from the TPU carries over.
 
 B_PAD = 256          # max queries per phase-A stream
-#: query-lane ladder; every rung is a multiple of the kernel's 64-lane
-#: (narrow) and 32-query (wide) tiles
+#: query-lane ladder; every rung is a multiple of the phase-A kernel's
+#: 32-thread warp, which holds up to B_PAD / 32 queries' maxima a thread
 B_BUCKETS = (64, 128, 256)
 #: union-term ladder (rows of W); beyond the last -> greedy split
 U_BUCKETS = (256, 384, 512, 768, 1024)
@@ -187,19 +188,43 @@ def _lane_mode(lanes: int, b: int) -> int:
     raise ValueError(f"W has {lanes} lanes for {b} queries")
 
 
-def phasea_plain(offs, doc, tid, con, w, slot_of, nm, fine: int):
+def weight_lists(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """W's nonzeros as per-slot lists, the phase-A kernel's form of W.
+
+    ``w`` bf16[U, lanes] on the CPU.  Returns (``nz_off`` i32[U + 1],
+    ``nz`` i32[nnz]): slot s's nonzeros are ``nz[nz_off[s]:nz_off[s +
+    1]]`` in ascending lane order, each ``lane | bf16 bits << 16``, so the
+    weights are exactly the values the plain version reads from ``w``.
+    Zeros of either sign are left out (adding them changes no sum)."""
+    u, lanes = w.shape
+    if lanes > 0xFFFF:
+        raise ValueError(f"{lanes} lanes do not fit 16 bits")
+    bits = w.contiguous().view(torch.int16).numpy().view(np.uint16)
+    rows, cols = np.nonzero(bits & 0x7FFF)
+    nz = (cols.astype(np.uint32) | (bits[rows, cols].astype(np.uint32) << 16))
+    nz_off = np.zeros(u + 1, dtype=np.int32)
+    np.cumsum(np.bincount(rows, minlength=u), out=nz_off[1:])
+    return torch.from_numpy(nz_off), torch.from_numpy(nz.view(np.int32))
+
+
+def phasea_plain(doc_offs, doc, tid, con, w, nz_off, nz, slot_of, nm,
+                 fine: int):
     """Plain PyTorch version of the phase-A kernel, same contract.
 
-    ``offs`` i32[nb + 1] chunk offsets of the block-major pack (``doc``
-    i32 global doc id, ``tid`` i32 global term id, ``con`` bf16
-    weight-free contribution; pad entries carry tid -1); ``w`` bf16
-    [U, lanes] weights per union slot; ``slot_of`` i32[n_terms] union
-    slot of each term (-1 outside the union); ``nm`` f32[b] per-query
-    score threshold (narrow) or required count (wide/packed).  Returns
-    f32[nb, fine, b]: the max gated score per (block, 512/fine-doc
-    slice, query), -inf where no doc passes.  Sums are f32."""
+    ``doc_offs`` i32[nb, 513] the per-doc offsets of the block-major
+    pack (``BlockMajorPack.doc_offs``; its last column ends each block's
+    real entries), whose entries are ``doc`` i32 global doc id, ``tid``
+    i32 global term id and ``con`` bf16 weight-free contribution (pad
+    entries carry tid -1); ``w`` bf16 [U, lanes] weights per union slot
+    and (``nz_off``, ``nz``) the same weights as :func:`weight_lists`
+    gives them (the kernel reads only these; this version reads ``w``);
+    ``slot_of`` i32[n_terms] union slot of each term (-1 outside the
+    union); ``nm`` f32[b] per-query score threshold (narrow) or required
+    count (wide/packed).  Returns f32[nb, fine, b]: the max gated score
+    per (block, 512/fine-doc slice, query), -inf where no doc passes.
+    Sums are f32, each doc's taken in pack order."""
     dev = doc.device
-    nb = offs.numel() - 1
+    nb = doc_offs.shape[0]
     b = nm.numel()
     lanes = w.shape[1]
     mode = _lane_mode(lanes, b)
@@ -208,7 +233,7 @@ def phasea_plain(offs, doc, tid, con, w, slot_of, nm, fine: int):
     scale = torch.ones(lanes, dtype=torch.bool, device=dev)
     scale[b:] = False  # count lanes take the raw weight
     S = torch.zeros(nb * BM_BLOCK_DOCS, lanes, dtype=torch.float32, device=dev)
-    end = int(offs[-1]) * BM_CHUNK
+    end = int(doc_offs[-1, -1]) if nb else 0
     for e in range(0, end, _PLAIN_ENTRY_STEP):
         t = tid[e : min(e + _PLAIN_ENTRY_STEP, end)].to(torch.int64)
         ok = (t >= 0) & (t < n_terms)
@@ -238,23 +263,25 @@ def _ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def phasea(offs, doc, tid, con, w, slot_of, nm, fine: int):
+def phasea(doc_offs, doc, tid, con, w, nz_off, nz, slot_of, nm, fine: int):
     """The phase-A kernel (``csrc/phasea.cu``); contract as
     :func:`phasea_plain`, which runs instead for CPU tensors."""
     global launches
     if doc.device.type == "cpu":
-        return phasea_plain(offs, doc, tid, con, w, slot_of, nm, fine)
+        return phasea_plain(doc_offs, doc, tid, con, w, nz_off, nz, slot_of,
+                            nm, fine)
     dev = doc.device
     b = nm.numel()
     lanes = w.shape[1] if w.dim() == 2 else -1
     mode = _lane_mode(lanes, b)
-    qt = 64 if mode == 0 else 32
-    if b % qt or fine not in (1, 2, 4, 8):
-        raise ValueError(f"b={b} must be a multiple of {qt}; fine={fine}")
+    if b % 32 or b > B_PAD or fine not in (1, 2, 4, 8):
+        raise ValueError(f"b={b} must be a multiple of 32 up to {B_PAD}; "
+                         f"fine={fine}")
     for name, t, dtype in (
-        ("offs", offs, torch.int32), ("doc", doc, torch.int32),
+        ("doc_offs", doc_offs, torch.int32), ("doc", doc, torch.int32),
         ("tid", tid, torch.int32), ("con", con, torch.bfloat16),
-        ("w", w, torch.bfloat16), ("slot_of", slot_of, torch.int32),
+        ("w", w, torch.bfloat16), ("nz_off", nz_off, torch.int32),
+        ("nz", nz, torch.int32), ("slot_of", slot_of, torch.int32),
         ("nm", nm, torch.float32),
     ):
         if t.device != dev or t.dtype != dtype or not t.is_contiguous():
@@ -264,17 +291,21 @@ def phasea(offs, doc, tid, con, w, slot_of, nm, fine: int):
             )
     if tid.shape != doc.shape or con.shape != doc.shape:
         raise ValueError("doc, tid and con must have one length")
-    nb = offs.numel() - 1
-    if nb > 65535:  # the grid's y dimension: 33.5M docs
-        raise ValueError(f"{nb} blocks exceed the phase-A grid")
+    if doc_offs.dim() != 2 or doc_offs.shape[1] != BM_BLOCK_DOCS + 1:
+        raise ValueError(f"doc_offs: shape {tuple(doc_offs.shape)}")
+    if nz_off.numel() != w.shape[0] + 1:
+        raise ValueError(f"nz_off has {nz_off.numel()} entries for "
+                         f"{w.shape[0]} slots")
+    nb = doc_offs.shape[0]
     out = torch.empty((nb, fine, b), dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fugu_phasea(
-            _ptr(offs), nb, _ptr(doc), _ptr(tid), _ptr(con), _ptr(w), lanes,
-            _ptr(slot_of), slot_of.numel(), _ptr(nm), b, mode, qt, fine,
-            _ptr(out), ctypes.c_void_p(stream),
+            _ptr(doc_offs), nb, _ptr(doc), _ptr(tid), _ptr(con),
+            _ptr(nz_off), _ptr(nz), w.shape[0], nz.numel(), _ptr(slot_of),
+            slot_of.numel(), _ptr(nm), b, lanes, mode, fine, _ptr(out),
+            ctypes.c_void_p(stream),
         )
     cuda_build.check(err, "phase-A launch")
     launches += 1
@@ -287,7 +318,7 @@ def _lib():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         v, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [v, i, v, v, v, v, i, v, i, v, i, i, i, i, v, v]
+        fn.argtypes = [v, i, v, v, v, v, v, i, i, v, i, v, i, i, i, i, v, v]
     return lib
 
 
@@ -870,12 +901,16 @@ def batch_search(
         for t, slot in terms.items():
             slot_of[t] = slot
         fine = _fine_for_stream(q_idx, limits)
+        w_bf = torch.from_numpy(w2).to(torch.bfloat16)
+        nz_off, nz = weight_lists(w_bf)
         amax = phasea(
-            pack.d_chunk_offs,
+            pack.d_doc_offs,
             pack.d_doc,
             pack.d_tid,
             pack.d_con,
-            torch.from_numpy(w2).to(device=device, dtype=torch.bfloat16),
+            w_bf.to(device),
+            nz_off.to(device),
+            nz.to(device),
             torch.from_numpy(slot_of).to(device),
             torch.from_numpy(nmust[0]).to(device),
             fine,

@@ -7,17 +7,19 @@ id, so its entries for one block are a contiguous subrange of its
 posting window.  The host stages, per (query, block), the T subrange
 starts and counts (one vectorized ``np.searchsorted`` per clause) and
 compacts each query's list of nonempty blocks, so sparse queries touch
-only the blocks they hit.  Queries touching more than ``NB_SPLIT``
-blocks become several kernel rows over block slices; slices partition
-doc space, so their top-k lists merge exactly.
+only the blocks they hit.
 
-One kernel row scores its blocks and applies the MUST / MUST_NOT /
-SHOULD masks and the tombstones (``csrc/block_scorer.cu``).  For k =
-128 the kernel keeps a running top-128; for smaller k it writes the
-masked dense block scores and ``topk_dense`` (the reference's XLA
-``top_k`` outside the kernel) picks the top k.  Either way the winners
-are (score desc, doc asc), and the host rescore then makes scores and
-order bit-identical to the NumPy oracle.
+One kernel row is one query over all its candidate blocks: the kernel
+(``csrc/block_scorer.cu``) scores each (row, block) in its own thread
+block, applies the MUST / MUST_NOT / SHOULD masks and the tombstones,
+keeps the block's top k in a scratch list, and a second pass merges a
+row's lists into the row's top k, (score desc, doc asc), for every k the
+engine extracts (16, 32, 64, 128).  The reference splits a query over
+more than ``NB_SPLIT`` blocks into several rows, to bound its shapes and
+to spread a heavy query over cores; here the (row, block) thread blocks
+already spread every row over the card, so a row is never split.  The
+host rescore then makes scores and order bit-identical to the NumPy
+oracle.
 """
 
 from __future__ import annotations
@@ -41,15 +43,8 @@ from fugu_tpu_torch.ops.staging import (
 from fugu_tpu_torch.query import QueryPlan
 
 BLOCK = 2048  # docs per block (== max entries per clause-block)
-#: queries touching more blocks than this split into several kernel
-#: rows; a row is one thread block, so splitting also spreads a heavy
-#: query over more SMs
-NB_SPLIT = 256
-MAX_K = 128   # largest extraction (== the in-kernel top-k width)
-K_OUT = 128
-#: cap on one dense dispatch's output (f32 elements, 256 MB): rows of
-#: nb_pad blocks each write nb_pad * BLOCK scores
-DENSE_MAX_ELEMS = 1 << 26
+MAX_K = 128   # largest extraction (the kernel takes any k up to it)
+K_OUT = 128   # columns of the candidates fetched to the host
 
 _INT_MAX = 2**31 - 1
 
@@ -91,18 +86,33 @@ def topk_dense(
 
 def score_rows_plain(
     nblocks, block_ids, starts, counts, weights, c1, c2, gbits, masks,
-    e_doc, e_tffid, tomb, need_bits: bool, topk: bool,
+    e_doc, e_tffid, tomb, need_bits: bool, k: int,
 ):
     """Plain PyTorch version of the block-scorer kernel, same contract.
 
-    Shapes: nblocks i32[B], block_ids i32[B, NB], starts/counts
-    i32[B, NB, T], weights/c1/c2 f32[B, T], gbits i32[B, T] (group
-    index, -1 none), masks i32[B, 3]; e_doc/e_tffid i32[E]; tomb
-    i32[>= n_blocks * BLOCK].  Dense (``topk`` False): f32[B, NB *
-    BLOCK] masked scores, -inf where unmatched or past the row's block
-    count.  ``topk``: (scores f32[B, 128], docs i32[B, 128]), (score
-    desc, doc asc), doc 2^31 - 1 where the score is -inf.  Clauses add
-    in order, so the f32 sums equal the kernel's."""
+    Shapes: nblocks i32[B], block_ids i32[B, NB] (ascending along each
+    row), starts/counts i32[B, NB, T], weights/c1/c2 f32[B, T], gbits
+    i32[B, T] (group index, -1 none), masks i32[B, 3]; e_doc/e_tffid
+    i32[E]; tomb i32[>= n_blocks * BLOCK].  Returns (scores f32[B, k],
+    docs i32[B, k]): each row's top ``k`` (1 <= k <= MAX_K) of its masked
+    scores, (score desc, doc asc), doc 2^31 - 1 where the score is -inf.
+    This version builds the dense masked scores (:func:`masked_scores`)
+    and takes :func:`topk_dense` of them."""
+    return topk_dense(
+        masked_scores(nblocks, block_ids, starts, counts, weights, c1, c2,
+                      gbits, masks, e_doc, e_tffid, tomb, need_bits),
+        block_ids, k,
+    )
+
+
+def masked_scores(
+    nblocks, block_ids, starts, counts, weights, c1, c2, gbits, masks,
+    e_doc, e_tffid, tomb, need_bits: bool,
+):
+    """f32[B, NB * BLOCK]: the rows' BM25 block scores (arguments as
+    :func:`score_rows_plain`'s), -inf where unmatched, tombstoned or
+    past the row's block count.  Clauses add in order, so the f32 sums
+    equal the kernel's."""
     dev = e_doc.device
     n_rows, nb_pad = block_ids.shape
     t_pad = weights.shape[1]
@@ -157,10 +167,7 @@ def score_rows_plain(
     )
     matched &= tomb.reshape(-1)[docs] == 0
     matched &= slot_ok.repeat_interleave(BLOCK, dim=1)
-    masked = torch.where(matched, scores, float("-inf"))
-    if topk:
-        return topk_dense(masked, block_ids, K_OUT)
-    return masked
+    return torch.where(matched, scores, float("-inf"))
 
 
 def _ptr(t: torch.Tensor):
@@ -169,16 +176,20 @@ def _ptr(t: torch.Tensor):
 
 def score_rows(
     nblocks, block_ids, starts, counts, weights, c1, c2, gbits, masks,
-    e_doc, e_tffid, tomb, need_bits: bool, topk: bool,
+    e_doc, e_tffid, tomb, need_bits: bool, k: int,
 ):
     """The block-scorer kernel (``csrc/block_scorer.cu``); contract as
-    :func:`score_rows_plain`, which runs instead for CPU tensors."""
+    :func:`score_rows_plain`, which runs instead for CPU tensors.  Its
+    first pass keeps each (row, block)'s top k in a scratch of
+    ``B * NB * k`` (score, doc) pairs, which its second pass merges."""
     global launches
     if e_doc.device.type == "cpu":
         return score_rows_plain(
             nblocks, block_ids, starts, counts, weights, c1, c2, gbits,
-            masks, e_doc, e_tffid, tomb, need_bits, topk,
+            masks, e_doc, e_tffid, tomb, need_bits, k,
         )
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} outside [1, {MAX_K}]")
     n_rows, nb_pad = block_ids.shape
     t_pad = weights.shape[1]
     shapes = {
@@ -204,15 +215,10 @@ def score_rows(
         if not t.is_contiguous():
             raise ValueError(f"{name}: not contiguous")
     dev = e_doc.device
-    if topk:
-        out_s = torch.empty(1, dtype=torch.float32, device=dev)
-        out_k = torch.empty((n_rows, K_OUT), dtype=torch.float32, device=dev)
-        out_d = torch.empty((n_rows, K_OUT), dtype=torch.int32, device=dev)
-    else:
-        out_s = torch.empty((n_rows, nb_pad * BLOCK), dtype=torch.float32,
-                            device=dev)
-        out_k = torch.empty(1, dtype=torch.float32, device=dev)
-        out_d = torch.empty(1, dtype=torch.int32, device=dev)
+    scr_k = torch.empty((n_rows, nb_pad, k), dtype=torch.float32, device=dev)
+    scr_d = torch.empty((n_rows, nb_pad, k), dtype=torch.int32, device=dev)
+    out_k = torch.empty((n_rows, k), dtype=torch.float32, device=dev)
+    out_d = torch.empty((n_rows, k), dtype=torch.int32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -220,12 +226,13 @@ def score_rows(
             _ptr(nblocks), _ptr(block_ids), _ptr(starts), _ptr(counts),
             _ptr(weights), _ptr(c1), _ptr(c2), _ptr(gbits), _ptr(masks),
             _ptr(e_doc), _ptr(e_tffid), _ptr(tomb),
-            n_rows, nb_pad, t_pad, int(need_bits), int(topk),
-            _ptr(out_s), _ptr(out_k), _ptr(out_d), ctypes.c_void_p(stream),
+            n_rows, nb_pad, t_pad, int(need_bits), k,
+            _ptr(scr_k), _ptr(scr_d), _ptr(out_k), _ptr(out_d),
+            ctypes.c_void_p(stream),
         )
     cuda_build.check(err, "block scorer launch")
     launches += 1
-    return (out_k, out_d) if topk else out_s
+    return out_k, out_d
 
 
 def _lib():
@@ -235,7 +242,7 @@ def _lib():
         fn.restype = ctypes.c_int
         fn.argtypes = (
             [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
-            + [ctypes.c_void_p] * 4
+            + [ctypes.c_void_p] * 5
         )
     return lib
 
@@ -355,9 +362,6 @@ def block_search_begin(
     # per-term block-offset tables are query-independent — cache them on
     # the segment so repeated terms across a batch skip the searchsorted
     offs_cache = segment.__dict__.setdefault("_block_offsets", {})
-    # the k = 128 bucket (limits 64..128) keeps its running top-128 in
-    # the kernel; smaller k write dense scores for topk_dense
-    topk = k == K_OUT
 
     for (t_pad, need_bits), items in by_t.items():
         rows = []
@@ -368,19 +372,15 @@ def block_search_begin(
             if block_lists is not None and i in block_lists:
                 bl = np.asarray(block_lists[i], dtype=np.int64)
                 nonempty = bl[np.isin(bl, nonempty, assume_unique=True)]
-            for s in range(0, max(len(nonempty), 1), NB_SPLIT):
-                rows.append(
-                    (i, args, must, mustnot, should, st, ct,
-                     nonempty[s : s + NB_SPLIT])
-                )
+            rows.append((i, args, must, mustnot, should, st, ct, nonempty))
         # rows group by a power-of-two block count, so one block-heavy
-        # row does not pad every row's tables and dense output to its size
+        # row does not pad every row's tables and scratch to its size
         by_nb: dict = {}
         for r in rows:
             nb_pad = 1 << (max(len(r[7]), 1) - 1).bit_length()
             by_nb.setdefault(nb_pad, []).append(r)
         for nb_pad, nb_rows in sorted(by_nb.items()):
-            _dispatch_rows(nb_rows, nb_pad, t_pad, k, need_bits, topk, pack,
+            _dispatch_rows(nb_rows, nb_pad, t_pad, k, need_bits, pack,
                            pending)
     return (results, pending, limit, segment, plans, stats)
 
@@ -396,70 +396,61 @@ def block_search_collect(handles):
     row = 0
     out = []
     for results, pend, limit, segment, plans, stats in handles:
-        partial: dict = {}
-        for chunk, _s, _d in pend:
-            for (i, *_rest) in chunk:
+        for rows, _s, _d in pend:
+            for (i, *_rest) in rows:  # one row a plan
                 s, d = top_s[row], top_d[row]
                 row += 1
                 keep = np.isfinite(s) & (d != _INT_MAX)
-                partial.setdefault(i, []).extend(
-                    zip(s[keep].tolist(), d[keep].tolist())
-                )
-        for i, hits in partial.items():
-            # slices partition doc space; scores are then replaced with
-            # oracle-exact host floats and re-ranked, so ordering is
-            # bit-identical to the oracle
-            results[i] = rescore_hits(segment, plans[i], stats, hits)[:limit]
+                hits = list(zip(s[keep].tolist(), d[keep].tolist()))
+                # scores are replaced with oracle-exact host floats and
+                # re-ranked, so ordering is bit-identical to the oracle
+                results[i] = rescore_hits(segment, plans[i], stats,
+                                          hits)[:limit]
         out.append(results)
     return out
 
 
-def _dispatch_rows(rows, nb_pad, t_pad, k, need_bits, topk, pack, pending):
+def _dispatch_rows(rows, nb_pad, t_pad, k, need_bits, pack, pending):
     """Stage and launch kernel rows sharing one (t_pad, nb_pad,
     need_bits) shape; the candidates stay on the device in ``pending``
     until the caller collects them."""
     dev = pack.e_doc.device
-    cap = len(rows) if topk else max(1, DENSE_MAX_ELEMS // (nb_pad * BLOCK))
-    for pos in range(0, len(rows), cap):
-        chunk = rows[pos : pos + cap]
-        n = len(chunk)
-        block_ids = np.zeros((n, nb_pad), dtype=np.int32)
-        nblocks = np.zeros(n, dtype=np.int32)
-        starts = np.zeros((n, nb_pad, t_pad), dtype=np.int32)
-        counts = np.zeros((n, nb_pad, t_pad), dtype=np.int32)
-        weights = np.zeros((n, t_pad), dtype=np.float32)
-        c1 = np.ones((n, t_pad), dtype=np.float32)
-        c2 = np.zeros((n, t_pad), dtype=np.float32)
-        gbits = np.full((n, t_pad), -1, dtype=np.int32)
-        masks = np.zeros((n, 3), dtype=np.int32)
-        for bi, (i, args, must, mustnot, should, st, ct, nonempty) in enumerate(
-            chunk
-        ):
-            nb = len(nonempty)
-            nblocks[bi] = nb
-            block_ids[bi, :nb] = nonempty
-            starts[bi, :nb] = st[nonempty]
-            counts[bi, :nb] = ct[nonempty]
-            weights[bi] = args.weights
-            c1[bi] = args.c1
-            c2[bi] = args.c2
-            for t in range(t_pad):
-                bits = int(args.gbits[t])
-                gbits[bi, t] = bits.bit_length() - 1 if bits else -1
-            masks[bi] = (mask_i32(must), mask_i32(mustnot), mask_i32(should))
+    n = len(rows)
+    block_ids = np.zeros((n, nb_pad), dtype=np.int32)
+    nblocks = np.zeros(n, dtype=np.int32)
+    starts = np.zeros((n, nb_pad, t_pad), dtype=np.int32)
+    counts = np.zeros((n, nb_pad, t_pad), dtype=np.int32)
+    weights = np.zeros((n, t_pad), dtype=np.float32)
+    c1 = np.ones((n, t_pad), dtype=np.float32)
+    c2 = np.zeros((n, t_pad), dtype=np.float32)
+    gbits = np.full((n, t_pad), -1, dtype=np.int32)
+    masks = np.zeros((n, 3), dtype=np.int32)
+    for bi, (i, args, must, mustnot, should, st, ct, nonempty) in enumerate(
+        rows
+    ):
+        nb = len(nonempty)
+        nblocks[bi] = nb
+        block_ids[bi, :nb] = nonempty
+        starts[bi, :nb] = st[nonempty]
+        counts[bi, :nb] = ct[nonempty]
+        weights[bi] = args.weights
+        c1[bi] = args.c1
+        c2[bi] = args.c2
+        for t in range(t_pad):
+            bits = int(args.gbits[t])
+            gbits[bi, t] = bits.bit_length() - 1 if bits else -1
+        masks[bi] = (mask_i32(must), mask_i32(mustnot), mask_i32(should))
 
-        def up(a):
-            return torch.from_numpy(a).to(dev)
+    def up(a):
+        return torch.from_numpy(a).to(dev)
 
-        d_block_ids = up(block_ids)
-        out = score_rows(
-            up(nblocks), d_block_ids, up(starts), up(counts), up(weights),
-            up(c1), up(c2), up(gbits), up(masks),
-            pack.e_doc, pack.e_tffid, pack.tomb, need_bits, topk,
-        )
-        top_s, top_d = out if topk else topk_dense(out, d_block_ids, k)
-        # pad to K_OUT columns so every batch's candidates fetch as one
-        pad = K_OUT - top_s.shape[1]
-        top_s = torch.nn.functional.pad(top_s, (0, pad), value=float("-inf"))
-        top_d = torch.nn.functional.pad(top_d, (0, pad), value=_INT_MAX)
-        pending.append((chunk, top_s, top_d))
+    top_s, top_d = score_rows(
+        up(nblocks), up(block_ids), up(starts), up(counts), up(weights),
+        up(c1), up(c2), up(gbits), up(masks),
+        pack.e_doc, pack.e_tffid, pack.tomb, need_bits, k,
+    )
+    # pad to K_OUT columns so every batch's candidates fetch as one
+    pad = K_OUT - top_s.shape[1]
+    top_s = torch.nn.functional.pad(top_s, (0, pad), value=float("-inf"))
+    top_d = torch.nn.functional.pad(top_d, (0, pad), value=_INT_MAX)
+    pending.append((rows, top_s, top_d))

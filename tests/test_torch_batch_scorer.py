@@ -240,6 +240,9 @@ def test_phasea_maxima_within_margin_of_reference(segs, lanes, fine):
     offs = np.zeros(nb_pad + 1, dtype=np.int32)
     offs[: nb + 1] = pack.chunk_offs
     offs[nb + 1 :] = pack.chunk_offs[-1]
+    doc_offs = np.full((nb_pad, port_segment.BM_BLOCK_DOCS + 1),
+                       pack.doc_offs[-1, -1], dtype=np.int32)
+    doc_offs[:nb] = pack.doc_offs
     doc = pack.d_doc.numpy()
     tid = pack.d_tid.numpy()
     con = pack.d_con.to(torch.float32).numpy()
@@ -258,9 +261,10 @@ def test_phasea_maxima_within_margin_of_reference(segs, lanes, fine):
     for s, t in enumerate(tid_arr[0]):
         if t >= 0:
             slot_of[t] = s
+    w_bf = torch.from_numpy(w2).to(torch.bfloat16)
     got = bs.phasea(
-        torch.from_numpy(offs), pack.d_doc, pack.d_tid, pack.d_con,
-        torch.from_numpy(w2).to(torch.bfloat16), torch.from_numpy(slot_of),
+        torch.from_numpy(doc_offs), pack.d_doc, pack.d_tid, pack.d_con,
+        w_bf, *bs.weight_lists(w_bf), torch.from_numpy(slot_of),
         torch.from_numpy(nmust[0].copy()), fine,
     ).numpy()
     assert got.shape == want.shape == (nb_pad, fine, b_pad)
@@ -269,6 +273,67 @@ def test_phasea_maxima_within_margin_of_reference(segs, lanes, fine):
     assert fin[:nb].any() and not fin[nb:].any()
     err = np.abs(got[fin] - want[fin])
     assert (err <= np.abs(want[fin]) * bs.MARGIN_REL + bs.MARGIN_ABS).all()
+
+
+def test_block_major_pack_is_doc_major(segs):
+    """Each block's run of the port's pack is a permutation of the same
+    run of the reference's pack_block_major (same chunk offsets, same
+    padding), doc-major with each doc's entries in the reference's order,
+    and doc_offs marks where each doc of the block starts and where the
+    block's real entries end."""
+    _, port = segs
+    stats = oracle.IndexStats([port])
+    pack = port.block_major(stats, CPU)
+    tid_entry, contrib, _tid_of, _n = port_segment.entry_term_contribs(
+        port, stats)
+    e = port.n_entries
+    ref_doc, ref_tid, ref_con, ref_offs, nb = ref_segment.pack_block_major(
+        port.e_doc[:e], tid_entry, contrib, port.doc_count)
+    np.testing.assert_array_equal(pack.chunk_offs, ref_offs)
+    assert pack.n_blocks == nb and pack.doc_offs.shape == (nb, 513)
+    doc = pack.d_doc.numpy()
+    tid = pack.d_tid.numpy()
+    con = pack.d_con.to(torch.float32).numpy()
+    ref_con = torch.from_numpy(ref_con).to(torch.bfloat16).float().numpy()
+    assert doc.shape == ref_doc.shape
+    chunk = port_segment.BM_CHUNK
+    for j in range(nb):
+        lo, hi = ref_offs[j] * chunk, ref_offs[j + 1] * chunk
+        real = lo + int((ref_doc[lo:hi] >= 0).sum())
+        assert pack.doc_offs[j, 0] == lo and pack.doc_offs[j, -1] == real
+        assert (doc[real:hi] == -1).all() and (tid[real:hi] == -1).all()
+        run = doc[lo:real]
+        assert (np.diff(run) >= 0).all()
+        want = np.searchsorted(run, j * 512 + np.arange(513)) + lo
+        np.testing.assert_array_equal(pack.doc_offs[j], want)
+        # the same (doc, tid, con) entries: the reference's run sorted
+        # stably by doc, so each doc's entries keep the reference's order
+        order = np.argsort(ref_doc[lo:real], kind="stable")
+        np.testing.assert_array_equal(run, ref_doc[lo:real][order])
+        np.testing.assert_array_equal(tid[lo:real], ref_tid[lo:real][order])
+        np.testing.assert_array_equal(con[lo:real], ref_con[lo:real][order])
+
+
+@pytest.mark.parametrize("lanes", sorted(LANE_CASES))
+def test_weight_lists_equal_w2_nonzeros(segs, lanes):
+    """The kernel's per-slot nonzero lists hold exactly the nonzeros of
+    the staged bf16 W, lane-ascending per slot, with its bf16 values,
+    count lanes included."""
+    kinds, packed = LANE_CASES[lanes]
+    _pack, w2, nmust, _tids, _wide = phasea_inputs(segs, kinds, packed)
+    w_bf = torch.from_numpy(w2).to(torch.bfloat16)
+    nz_off, nz = (a.numpy() for a in bs.weight_lists(w_bf))
+    w = w_bf.float().numpy()
+    assert nz_off[0] == 0 and nz_off[-1] == nz.size == np.count_nonzero(w)
+    rebuilt = np.zeros_like(w)
+    for s in range(w.shape[0]):
+        pairs = nz[nz_off[s]:nz_off[s + 1]].view(np.uint32)
+        cols = (pairs & 0xFFFF).astype(np.int64)
+        assert (np.diff(cols) > 0).all()
+        rebuilt[s, cols] = (pairs & 0xFFFF0000).view(np.float32)
+    np.testing.assert_array_equal(rebuilt, w)
+    b = nmust.shape[1]
+    assert (w[:, b:] != 0).any() == (lanes != "narrow")
 
 
 def test_postproc_matches_reference():

@@ -192,10 +192,11 @@ def test_limit_above_128_declines(segs):
 
 
 def test_block_slice_split(segs, monkeypatch):
-    """NB_SPLIT = 1 makes every block its own kernel row; the per-slice
-    top-k lists merge on the host and must stay exact, on both the dense
-    (limit 10, k = 16) and the in-kernel top-128 (limit 100) paths."""
-    monkeypatch.setattr(ps, "NB_SPLIT", 1)
+    """The reference's NB_SPLIT = 1 makes every block its own kernel row,
+    whose per-slice top-k lists merge on its host; the port never splits
+    a row (its kernel merges the per-block lists itself).  Both must stay
+    exact, at k = 16 (limit 10) and k = 128 (limit 100)."""
+    assert not hasattr(ps, "NB_SPLIT")
     monkeypatch.setattr(ref_ps, "NB_SPLIT", 1)
     plans = [plan_terms("w0", "w3"), plan_terms("w0", "w5", occur=Occur.MUST)]
     assert_identical(*segs, plans, 10)
@@ -289,10 +290,11 @@ def stage_rows(port, plans, stats, t_pad, nb_pad):
 
 def assert_raw_topk(ref, plans, k, inkernel, t_pad=4, nb_pad=32):
     """One kernel dispatch of ``plans`` (one row each) before the host
-    rescore, in the reference's scorer call (interpret mode) and in the
-    port's ``score_rows``, both in the given mode (running top-128 in the
-    kernel, or dense scores and a top-k outside it): the same candidate
-    docs, and scores within 1e-6 relative.  The scores are not bit-equal
+    rescore, in the reference's scorer call (interpret mode; running
+    top-128 in its kernel, or dense scores and its top_k outside it, as
+    ``inkernel`` says) and in the port's ``score_rows`` (the row's top k):
+    the same candidate docs, and scores within 1e-6 relative.  The
+    scores are not bit-equal
     because the reference's interpret-mode kernel scatters through a
     three-way bf16 split of each f32 contribution and an f32 matmul,
     which reproduces the contribution only to a few f32 ulps, while the
@@ -318,9 +320,8 @@ def assert_raw_topk(ref, plans, k, inkernel, t_pad=4, nb_pad=32):
 
     pack = port_segment.device_pack_from_numpy(e_doc, e_tffid, tomb, CPU)
     t = [torch.from_numpy(a) for a in tables]
-    out = ps.score_rows(*t, pack.e_doc, pack.e_tffid, pack.tomb,
-                        need_bits, inkernel)
-    got_s, got_d = out if inkernel else ps.topk_dense(out, t[1], k)
+    got_s, got_d = ps.score_rows(*t, pack.e_doc, pack.e_tffid, pack.tomb,
+                                 need_bits, k)
     got_s, got_d = got_s.numpy(), got_d.numpy()
     assert got_s.shape == want_s.shape
     np.testing.assert_array_equal(got_d, want_d)
@@ -329,13 +330,72 @@ def assert_raw_topk(ref, plans, k, inkernel, t_pad=4, nb_pad=32):
     np.testing.assert_allclose(got_s[fin], want_s[fin], rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("k", [32, 128])
+@pytest.mark.parametrize("k", [16, 32, 64, 128])
 def test_raw_topk_matches_reference_kernel(k):
-    """Raw candidates of the dense (k = 32) and in-kernel top-128
-    (k = 128) modes against the reference kernel's, over MUST, MUST_NOT,
-    facet and SHOULD rows with tombstones."""
+    """The port's row top k against the reference kernel's raw
+    candidates (its dense output and top_k for k < 128, its in-kernel
+    top-128 for k = 128), over MUST, MUST_NOT, facet and SHOULD rows with
+    tombstones."""
     ref = make_ref_segment()
     ref.tombstones[::11] = True
     plans = [plan_terms("w0", "w3"), CASES["must"][0], CASES["mustnot"][0],
              CASES["facet_filter"][0]]
     assert_raw_topk(ref, plans, k, inkernel=k == ps.K_OUT)
+
+
+def two_pass(masked, block_ids, nblocks, k):
+    """The kernel's two passes in plain torch: each (row, block slot)
+    keeps its block's top k in scratch [B, NB, k] (score desc, doc asc),
+    then each row's first ``nblocks`` lists merge into its top k, ties
+    again to the lower doc.  Returns (scratch scores, scratch docs,
+    scores, docs)."""
+    n_rows, nb_pad = block_ids.shape
+    per_block = masked.reshape(n_rows * nb_pad, ps.BLOCK)
+    scr_s, scr_d = ps.topk_dense(per_block, block_ids.reshape(-1, 1), k)
+    scr_s = scr_s.reshape(n_rows, nb_pad, k)
+    scr_d = scr_d.reshape(n_rows, nb_pad, k)
+    listed = torch.arange(nb_pad)[None, :, None] < nblocks[:, None, None]
+    cand_s = torch.where(listed, scr_s, float("-inf")).reshape(n_rows, -1)
+    cand_d = torch.where(listed, scr_d, ps._INT_MAX).reshape(n_rows, -1)
+    sel = torch.topk(ps._order_keys(cand_s, cand_d), k, dim=1).indices
+    top_s = torch.gather(cand_s, 1, sel)
+    top_d = torch.where(top_s > float("-inf"), torch.gather(cand_d, 1, sel),
+                        ps._INT_MAX)
+    return scr_s, scr_d, top_s, top_d
+
+
+@pytest.mark.parametrize("k", [16, 32, 64, 128])
+def test_two_pass_select_matches_dense_topk(k):
+    """The kernel's decomposition, per-block top-k lists in a [B, NB, k]
+    scratch merged per row, gives the plain version's dense top k (docs
+    and score bits), on a corpus where more than k docs tie across
+    blocks, with tombstones, rows of 1 and of every block, and a row
+    with no block."""
+    b = SegmentBuilder(DOCS_SCHEMA)
+    for i in range(9000):
+        text = "foo bar baz" if i % 3 == 0 else f"filler w{i % 7} foo"
+        b.add_document({"text": [text]}, stored={"id": f"t{i}"})
+    port = to_port(b.build())
+    port.tombstones[::31] = True
+    stats = oracle.IndexStats([port])
+    plans = [to_port_plan(p) for p in (
+        plan_terms("foo", "bar"), plan_terms("baz"),
+        plan_terms("w3", "w5"), plan_terms("foo", "w1", occur=Occur.MUST),
+    )]
+    tables, need_bits = stage_rows(port, plans, stats, 4, 8)
+    assert need_bits and int(tables[0][0]) == 5
+    nblocks = tables[0].copy()
+    nblocks[1] = 1  # a row over its first block only
+    nblocks[3] = 0  # a row with no block
+    t = [torch.from_numpy(a) for a in (nblocks,) + tables[1:]]
+    pack = port.device_pack(CPU)
+    args = t + [pack.e_doc, pack.e_tffid, pack.tomb, need_bits]
+    want_s, want_d = ps.score_rows_plain(*args, k)
+    scr_s, scr_d, got_s, got_d = two_pass(ps.masked_scores(*args), t[1],
+                                          t[0], k)
+    assert scr_s.shape == scr_d.shape == (len(plans), 8, k)
+    assert got_s.shape == want_s.shape == (len(plans), k)
+    np.testing.assert_array_equal(got_d.numpy(), want_d.numpy())
+    np.testing.assert_array_equal(got_s.numpy().view(np.int32),
+                                  want_s.numpy().view(np.int32))
+    assert np.isfinite(want_s[0].numpy()).all()  # > k tied docs in row 0

@@ -66,8 +66,11 @@ REWRITTEN = {
     },
     "index/segment.py": {
         "Segment.device_tomb_flags", "Segment.block_major",
-        "Segment.device_pack", "BlockMajorPack", "EntryPack",
+        "Segment.device_pack", "EntryPack",
         "device_pack_from_numpy", "block_major_from_numpy",
+        # doc-major blocks and their per-doc offsets for the phase-A
+        # kernel; pack_block_major itself stays verbatim
+        "BlockMajorPack", "block_doc_offsets",
     },
     "native.py": {
         "__doc__", "NATIVE_DIR", "BUILD_DIR", "LIB_PATH", "build_library",
