@@ -350,30 +350,35 @@ def compare_phrase(args, ps):
 
 
 def scorer_cost(args):
-    """(bytes, operations) one block-scorer call must move and do: its
-    rows' posting entries (doc and tf | fid, 8 bytes each), each (row,
-    block)'s 2048 tombstone flags and the k (score, doc) pairs a row;
-    six operations a posting (two adds, two multiplies, a division and
-    the sum)."""
+    """(bytes, operations) one block-scorer call must move and do: each
+    posting run it lists (doc and tf | fid, 8 bytes an entry) and each
+    block it lists (2048 tombstone flags) once, however many of its rows
+    share them, and the k (score, doc) pairs a row; six operations a
+    posting of a row (two adds, two multiplies, a division and the
+    sum)."""
     import torch
 
-    nblocks, block_ids, _st, counts, *_rest, k = args
+    nblocks, block_ids, starts, counts, *_rest, k = args
     listed = (torch.arange(block_ids.shape[1], device=counts.device)[None, :]
               < nblocks[:, None])
-    entries = int((counts * listed[:, :, None]).sum())
-    n_blocks = int(nblocks.sum())
-    nbytes = entries * 8 + n_blocks * 2048 * 4 + nblocks.numel() * k * 8
-    return nbytes, 6 * entries
+    run = listed[:, :, None] & (counts > 0)
+    # a run is one clause's entries in one block: its start names it
+    firsts, inv = torch.unique(starts[run], return_inverse=True)
+    run_len = torch.zeros_like(firsts).scatter_(0, inv, counts[run])
+    distinct = int(run_len.sum())
+    blocks = torch.unique(block_ids[listed]).numel()
+    nbytes = distinct * 8 + blocks * 2048 * 4 + nblocks.numel() * k * 8
+    return nbytes, 6 * int(counts[run].sum())
 
 
 def phasea_cost(args):
     """(bytes, operations) one phase-A call must move and do: its real
     entries (doc, term id and bf16 contribution, 10 bytes each; the chunk
-    padding is no work), W and the maxima; two operations per nonzero
-    product of W's row and a live entry."""
+    padding is no work), W's nonzero lists and the maxima; two operations
+    per nonzero product of W's row and a live entry."""
     import torch
 
-    doc_offs, _doc, tid, _con, w, nz_off, _nz, slot_of, nm, fine = args
+    doc_offs, _doc, tid, _con, nz_off, nz, _lanes, slot_of, nm, fine = args
     real = int((doc_offs[:, -1] - doc_offs[:, 0]).sum())
     t = tid[:int(doc_offs[-1, -1])].long()
     n_terms = slot_of.numel()
@@ -382,7 +387,7 @@ def phasea_cost(args):
     per_slot = (nz_off[1:] - nz_off[:-1]).long()
     products = int(per_slot[slot[slot >= 0]].sum())
     out = doc_offs.shape[0] * fine * nm.numel() * 4
-    return real * 10 + w.numel() * 2 + out, 2 * products
+    return real * 10 + (nz_off.numel() + nz.numel()) * 4 + out, 2 * products
 
 
 def phrase_cost(args):
@@ -516,12 +521,12 @@ def phase_kernels(device, tag):
         modes = set()
         for args in rec.calls:
             phasea_err = max(phasea_err, compare_phasea(args, ba))
-            m = ba._lane_mode(args[4].shape[1], args[8].numel())
+            m = ba._lane_mode(args[6], args[8].numel())
             modes.add(m)
             lane_calls.setdefault(m, args)
             fines.add(args[9])
-            head_nnz = max(head_nnz, int((args[5][1:] - args[5][:-1]).max()))
-            u_top = max(u_top, args[4].shape[0])
+            head_nnz = max(head_nnz, int((args[4][1:] - args[4][:-1]).max()))
+            u_top = max(u_top, args[4].numel() - 1)
         if mode not in modes:
             fail(f"phase-A check of {name} lanes at limit {limit} launched "
                  f"lane modes {modes}")

@@ -12,7 +12,8 @@
 // one IEEE division an entry, and the outputs are k pairs a row.
 //
 // Design: two passes, launched together.  Pass 1 has one thread block of
-// 256 threads per (row, block), so a row over hundreds of blocks is
+// 256 threads per (row, block slot), on a flat grid of rows * nb_pad
+// blocks (no 65,535-row limit), so a row over hundreds of blocks is
 // spread over every SM and several blocks share an SM.  The block's 2048
 // scores and clause-presence bits live in shared memory (16 KB).  Within
 // one clause a doc appears at most once, so a clause scatters with plain
@@ -215,7 +216,7 @@ struct ListSrc {
   }
 };
 
-// pass 1: one thread block per (block slot, row)
+// pass 1: one thread block per (row, block slot), row-major on grid.x
 __global__ void __launch_bounds__(NT) block_topk_kernel(
     const int* __restrict__ nblocks,    // [B]
     const int* __restrict__ block_ids,  // [B, nb_pad]
@@ -236,8 +237,8 @@ __global__ void __launch_bounds__(NT) block_topk_kernel(
   __shared__ int s_bits[BLOCK];
   __shared__ SelSmem sel;
 
-  const int jj = blockIdx.x;
-  const int b = blockIdx.y;
+  const int b = blockIdx.x / nb_pad;
+  const int jj = blockIdx.x - b * nb_pad;
   const int tid = threadIdx.x;
   if (jj >= nblocks[b]) return;  // uniform across the thread block
   const unsigned must = (unsigned)masks[b * 3 + 0];
@@ -333,9 +334,10 @@ extern "C" int fugu_block_scorer(
     const int* tomb, int n_rows, int nb_pad, int t_pad, int need_bits, int k,
     float* scr_key, int* scr_doc, float* out_key, int* out_doc,
     void* stream) {
-  if (k < 1 || k > MAX_K || n_rows > 65535) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > MAX_K || (long long)n_rows * nb_pad > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   if (n_rows > 0 && nb_pad > 0) {
-    block_topk_kernel<<<dim3(nb_pad, n_rows), NT, 0, (cudaStream_t)stream>>>(
+    block_topk_kernel<<<n_rows * nb_pad, NT, 0, (cudaStream_t)stream>>>(
         nblocks, block_ids, starts, counts, weights, c1, c2, gbits, masks,
         e_doc, e_tffid, tomb, nb_pad, t_pad, need_bits, k, scr_key, scr_doc);
     cudaError_t err = cudaGetLastError();

@@ -207,17 +207,28 @@ def weight_lists(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.from_numpy(nz_off), torch.from_numpy(nz.view(np.int32))
 
 
-def phasea_plain(doc_offs, doc, tid, con, w, nz_off, nz, slot_of, nm,
-                 fine: int):
+def dense_weights(nz_off, nz, lanes: int) -> torch.Tensor:
+    """f32[U, lanes]: the W that :func:`weight_lists` listed, zeros
+    where it listed nothing."""
+    u = nz_off.numel() - 1
+    per = (nz_off[1:] - nz_off[:-1]).to(torch.int64)
+    rows = torch.repeat_interleave(torch.arange(u, device=nz.device), per)
+    w = torch.zeros(u, lanes, dtype=torch.float32, device=nz.device)
+    # a bf16 value is the high half of the f32 of the same value
+    w[rows, (nz & 0xFFFF).to(torch.int64)] = (nz & -65536).view(torch.float32)
+    return w
+
+
+def phasea_plain(doc_offs, doc, tid, con, nz_off, nz, lanes: int, slot_of,
+                 nm, fine: int):
     """Plain PyTorch version of the phase-A kernel, same contract.
 
     ``doc_offs`` i32[nb, 513] the per-doc offsets of the block-major
     pack (``BlockMajorPack.doc_offs``; its last column ends each block's
     real entries), whose entries are ``doc`` i32 global doc id, ``tid``
     i32 global term id and ``con`` bf16 weight-free contribution (pad
-    entries carry tid -1); ``w`` bf16 [U, lanes] weights per union slot
-    and (``nz_off``, ``nz``) the same weights as :func:`weight_lists`
-    gives them (the kernel reads only these; this version reads ``w``);
+    entries carry tid -1); (``nz_off``, ``nz``) the bf16 weights W [U,
+    ``lanes``] per union slot as :func:`weight_lists` lists them;
     ``slot_of`` i32[n_terms] union slot of each term (-1 outside the
     union); ``nm`` f32[b] per-query score threshold (narrow) or required
     count (wide/packed).  Returns f32[nb, fine, b]: the max gated score
@@ -226,10 +237,9 @@ def phasea_plain(doc_offs, doc, tid, con, w, nz_off, nz, slot_of, nm,
     dev = doc.device
     nb = doc_offs.shape[0]
     b = nm.numel()
-    lanes = w.shape[1]
     mode = _lane_mode(lanes, b)
     n_terms = slot_of.numel()
-    wf = w.to(torch.float32)
+    wf = dense_weights(nz_off, nz, lanes)
     scale = torch.ones(lanes, dtype=torch.bool, device=dev)
     scale[b:] = False  # count lanes take the raw weight
     S = torch.zeros(nb * BM_BLOCK_DOCS, lanes, dtype=torch.float32, device=dev)
@@ -263,16 +273,16 @@ def _ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def phasea(doc_offs, doc, tid, con, w, nz_off, nz, slot_of, nm, fine: int):
+def phasea(doc_offs, doc, tid, con, nz_off, nz, lanes: int, slot_of, nm,
+           fine: int):
     """The phase-A kernel (``csrc/phasea.cu``); contract as
     :func:`phasea_plain`, which runs instead for CPU tensors."""
     global launches
     if doc.device.type == "cpu":
-        return phasea_plain(doc_offs, doc, tid, con, w, nz_off, nz, slot_of,
-                            nm, fine)
+        return phasea_plain(doc_offs, doc, tid, con, nz_off, nz, lanes,
+                            slot_of, nm, fine)
     dev = doc.device
     b = nm.numel()
-    lanes = w.shape[1] if w.dim() == 2 else -1
     mode = _lane_mode(lanes, b)
     if b % 32 or b > B_PAD or fine not in (1, 2, 4, 8):
         raise ValueError(f"b={b} must be a multiple of 32 up to {B_PAD}; "
@@ -280,7 +290,7 @@ def phasea(doc_offs, doc, tid, con, w, nz_off, nz, slot_of, nm, fine: int):
     for name, t, dtype in (
         ("doc_offs", doc_offs, torch.int32), ("doc", doc, torch.int32),
         ("tid", tid, torch.int32), ("con", con, torch.bfloat16),
-        ("w", w, torch.bfloat16), ("nz_off", nz_off, torch.int32),
+        ("nz_off", nz_off, torch.int32),
         ("nz", nz, torch.int32), ("slot_of", slot_of, torch.int32),
         ("nm", nm, torch.float32),
     ):
@@ -293,9 +303,8 @@ def phasea(doc_offs, doc, tid, con, w, nz_off, nz, slot_of, nm, fine: int):
         raise ValueError("doc, tid and con must have one length")
     if doc_offs.dim() != 2 or doc_offs.shape[1] != BM_BLOCK_DOCS + 1:
         raise ValueError(f"doc_offs: shape {tuple(doc_offs.shape)}")
-    if nz_off.numel() != w.shape[0] + 1:
-        raise ValueError(f"nz_off has {nz_off.numel()} entries for "
-                         f"{w.shape[0]} slots")
+    if nz_off.dim() != 1 or nz_off.numel() < 1:
+        raise ValueError(f"nz_off: shape {tuple(nz_off.shape)}")
     nb = doc_offs.shape[0]
     out = torch.empty((nb, fine, b), dtype=torch.float32, device=dev)
     lib = _lib()
@@ -303,7 +312,8 @@ def phasea(doc_offs, doc, tid, con, w, nz_off, nz, slot_of, nm, fine: int):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fugu_phasea(
             _ptr(doc_offs), nb, _ptr(doc), _ptr(tid), _ptr(con),
-            _ptr(nz_off), _ptr(nz), w.shape[0], nz.numel(), _ptr(slot_of),
+            _ptr(nz_off), _ptr(nz), nz_off.numel() - 1, nz.numel(),
+            _ptr(slot_of),
             slot_of.numel(), _ptr(nm), b, lanes, mode, fine, _ptr(out),
             ctypes.c_void_p(stream),
         )
@@ -901,16 +911,15 @@ def batch_search(
         for t, slot in terms.items():
             slot_of[t] = slot
         fine = _fine_for_stream(q_idx, limits)
-        w_bf = torch.from_numpy(w2).to(torch.bfloat16)
-        nz_off, nz = weight_lists(w_bf)
+        nz_off, nz = weight_lists(torch.from_numpy(w2).to(torch.bfloat16))
         amax = phasea(
             pack.d_doc_offs,
             pack.d_doc,
             pack.d_tid,
             pack.d_con,
-            w_bf.to(device),
             nz_off.to(device),
             nz.to(device),
+            w2.shape[1],
             torch.from_numpy(slot_of).to(device),
             torch.from_numpy(nmust[0]).to(device),
             fine,

@@ -17,9 +17,10 @@ row's lists into the row's top k, (score desc, doc asc), for every k the
 engine extracts (16, 32, 64, 128).  The reference splits a query over
 more than ``NB_SPLIT`` blocks into several rows, to bound its shapes and
 to spread a heavy query over cores; here the (row, block) thread blocks
-already spread every row over the card, so a row is never split.  The
-host rescore then makes scores and order bit-identical to the NumPy
-oracle.
+already spread every row over the card, so a row is never split.  A
+launch takes at most ``SCRATCH_MAX_BYTES`` of first-pass scratch: more
+rows of one shape go in several launches.  The host rescore then makes
+scores and order bit-identical to the NumPy oracle.
 """
 
 from __future__ import annotations
@@ -45,6 +46,9 @@ from fugu_tpu_torch.query import QueryPlan
 BLOCK = 2048  # docs per block (== max entries per clause-block)
 MAX_K = 128   # largest extraction (the kernel takes any k up to it)
 K_OUT = 128   # columns of the candidates fetched to the host
+#: largest first-pass scratch of one launch (B * nb_pad * k score, doc
+#: pairs of 8 bytes); the 1M mix's largest launch takes 8 MiB
+SCRATCH_MAX_BYTES = 64 << 20
 
 _INT_MAX = 2**31 - 1
 
@@ -380,8 +384,10 @@ def block_search_begin(
             nb_pad = 1 << (max(len(r[7]), 1) - 1).bit_length()
             by_nb.setdefault(nb_pad, []).append(r)
         for nb_pad, nb_rows in sorted(by_nb.items()):
-            _dispatch_rows(nb_rows, nb_pad, t_pad, k, need_bits, pack,
-                           pending)
+            step = max(SCRATCH_MAX_BYTES // (nb_pad * k * 8), 1)
+            for lo in range(0, len(nb_rows), step):
+                _dispatch_rows(nb_rows[lo:lo + step], nb_pad, t_pad, k,
+                               need_bits, pack, pending)
     return (results, pending, limit, segment, plans, stats)
 
 

@@ -264,7 +264,7 @@ def test_phasea_maxima_within_margin_of_reference(segs, lanes, fine):
     w_bf = torch.from_numpy(w2).to(torch.bfloat16)
     got = bs.phasea(
         torch.from_numpy(doc_offs), pack.d_doc, pack.d_tid, pack.d_con,
-        w_bf, *bs.weight_lists(w_bf), torch.from_numpy(slot_of),
+        *bs.weight_lists(w_bf), lanes_w, torch.from_numpy(slot_of),
         torch.from_numpy(nmust[0].copy()), fine,
     ).numpy()
     assert got.shape == want.shape == (nb_pad, fine, b_pad)
@@ -318,7 +318,8 @@ def test_block_major_pack_is_doc_major(segs):
 def test_weight_lists_equal_w2_nonzeros(segs, lanes):
     """The kernel's per-slot nonzero lists hold exactly the nonzeros of
     the staged bf16 W, lane-ascending per slot, with its bf16 values,
-    count lanes included."""
+    count lanes included; the plain version's dense W rebuilt from them
+    is that W."""
     kinds, packed = LANE_CASES[lanes]
     _pack, w2, nmust, _tids, _wide = phasea_inputs(segs, kinds, packed)
     w_bf = torch.from_numpy(w2).to(torch.bfloat16)
@@ -332,6 +333,9 @@ def test_weight_lists_equal_w2_nonzeros(segs, lanes):
         assert (np.diff(cols) > 0).all()
         rebuilt[s, cols] = (pairs & 0xFFFF0000).view(np.float32)
     np.testing.assert_array_equal(rebuilt, w)
+    dense = bs.dense_weights(torch.from_numpy(nz_off), torch.from_numpy(nz),
+                             w.shape[1])
+    np.testing.assert_array_equal(dense.numpy(), w)
     b = nmust.shape[1]
     assert (w[:, b:] != 0).any() == (lanes != "narrow")
 

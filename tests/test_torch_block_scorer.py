@@ -203,6 +203,29 @@ def test_block_slice_split(segs, monkeypatch):
     assert_identical(*segs, plans, 100)
 
 
+def test_scratch_cap_splits_launches(segs, monkeypatch):
+    """Rows of one shape whose first-pass scratch would pass
+    ``SCRATCH_MAX_BYTES`` go in several launches (one row each at the
+    smallest cap), and every result stays exact."""
+    plans = [plan_terms("w0"), plan_terms("w1", "w4"),
+             plan_terms("w2", "w5", "w7"), CASES["must"][0]]
+    rows = []
+    score_rows = ps.score_rows
+
+    def counted(*args):
+        rows.append(args[1].shape[0])
+        return score_rows(*args)
+
+    monkeypatch.setattr(ps, "score_rows", counted)
+    assert_identical(*segs, plans, 10)
+    whole = list(rows)
+    rows.clear()
+    monkeypatch.setattr(ps, "SCRATCH_MAX_BYTES", 1)
+    assert_identical(*segs, plans, 10)
+    assert max(whole) > 1 and set(rows) == {1}
+    assert len(rows) == sum(whole)
+
+
 @pytest.mark.parametrize("mode", ["1", "0"])
 def test_inkernel_topk_tie_corpus(monkeypatch, mode):
     """More than 128 docs tie on one score: the doc-asc tie-break decides
