@@ -17,8 +17,11 @@ no CUDA device exists or the checkout is missing.  Phases:
    a head term in 160 queries of one stream, a union at the largest
    ``U_BUCKETS`` rung, and two runs of each launch that must give the
    same bits) and the phrase kernel (slop 0 and sloppy dispatches,
-   every kmax bucket, 64 and 256 query lanes), plus the phrase kernel
-   on a segment of pervasive ties;
+   every kmax bucket, 64, 128 and 256 query lanes, 200 queries of one
+   launch on one first term, the long doc's phrase tf of 1,500, and two
+   runs of each launch that must give the same bits), plus the phrase
+   kernel on a segment of pervasive ties and on one whose docs start
+   at every offset within KGAP rows either side of a chunk boundary;
 4. the main path: a seeded 1M-doc corpus (bench.py's generator) is
    committed to a namespace directory, opened with the port's
    ``NamedIndex`` and queried with bench.py's 256-query mix through
@@ -52,7 +55,9 @@ The last lines are the ``kernels`` JSON line (per kernel: launches in
 the 3 warm passes and per pass, ms and plain ms per warm pass, the
 bound in ms with its bytes and operations, the roofline share, and
 ``library_ms`` null, since no single PyTorch call computes any of the
-three), the card line, and ``{"ok": true, "device": {...}}``.  Every
+three; the phrase kernel also gives its registers a thread, shared
+bytes a block and resident blocks per SM), the card line, and
+``{"ok": true, "device": {...}}``.  Every
 number printed is measured in this run, on the card named beside it,
 but the bounds, which are computed from the recorded calls' arguments.
 """
@@ -99,6 +104,8 @@ LONG_DOC = " ".join([" ".join(LONG_PAIR)] * 1500)
 #: the check segment's doc with more distinct terms than a warp has
 #: threads (phase A visits a doc's entries 32 at a time)
 WIDE_DOC = " ".join(f"t{i:05d}" for i in range(100))
+#: the straddle segment's phrase, at the start and the end of each doc
+EDGE_PHRASE = ("p00", "p01", "p02")
 
 
 def fail(msg: str) -> None:
@@ -335,12 +342,17 @@ def compare_phasea(args, ba):
 
 def compare_phrase(args, ps):
     """max |kernel - plain| of one recorded phrase-kernel call; fails
-    unless the classes are identical and the maxima bit-identical."""
+    unless the classes are identical and the maxima bit-identical, and
+    unless a second run of the kernel gives the same bits."""
     import torch
 
     gmax, gcls = ps.phrase_stream(*args)
+    amax, acls = ps.phrase_stream(*args)
     rmax, rcls = ps.phrase_stream_plain(*args)
     torch.cuda.synchronize()
+    if not (torch.equal(gcls, acls)
+            and torch.equal(gmax.view(torch.int32), amax.view(torch.int32))):
+        fail("phrase kernel: two runs on the same inputs differ")
     if not torch.equal(gcls, rcls):
         fail("phrase kernel: argmax classes differ from plain")
     if not torch.equal(gmax.view(torch.int32), rmax.view(torch.int32)):
@@ -394,11 +406,12 @@ def phrase_cost(args):
     """(bytes, operations) one phrase-kernel call must move and do: the
     stream's real token rows (4 bytes each; sentinel rows are no work),
     each streamed block's 512 docs' ``cv`` and ``fid`` and the maxima
-    and classes; one term lookup a token."""
+    and classes; one term lookup a token.  ``doc_row`` is layout the
+    kernel reads to walk whole docs, not work: it is not counted."""
     from fugu_tpu_torch.index.segment import BM_BLOCK_DOCS, BM_CHUNK
     from fugu_tpu_torch.ops.phrase_stream import FINE_PER_BLOCK, TID_MASK
 
-    offs, tok, _cv, _fid, qterm, *_rest = args
+    offs, _doc_row, tok, _cv, _fid, qterm, *_rest = args
     rows = tok[:int(offs[-1]) * BM_CHUNK]
     real = int(((rows & TID_MASK) != TID_MASK).sum())
     streamed = int((offs[1:] > offs[:-1]).sum())
@@ -591,12 +604,41 @@ def phase_kernels(device, tag):
     return scorer_err, phasea_err, phrase_err
 
 
+def straddle_segment():
+    """A segment whose docs start at every offset within 2 * KGAP rows
+    either side of a 2040-row chunk boundary: block 0 opens with 17 docs
+    of 2,033 tokens (2,041 rows each with the doc gap, so doc i starts i
+    rows past boundary i), block 1 with 17 of 2,031 (i rows before it),
+    block 2 with 3 of 2,032 (on the boundaries), each beginning and
+    ending with EDGE_PHRASE; short docs fill the blocks."""
+    from fugu_tpu_torch.index.schema import DOCS_SCHEMA
+    from fugu_tpu_torch.index.segment import BM_BLOCK_DOCS, SegmentBuilder
+
+    rng = np.random.default_rng(SEED + 103)
+    vocab = [f"p{i:02d}" for i in range(12)]
+
+    def text(n):
+        mid = list(rng.choice(vocab, size=n - 2 * len(EDGE_PHRASE)))
+        return " ".join(list(EDGE_PHRASE) + mid + list(EDGE_PHRASE))
+
+    b = SegmentBuilder(DOCS_SCHEMA)
+    for n_tokens, n_long in ((2033, 17), (2031, 17), (2032, 3)):
+        for i in range(BM_BLOCK_DOCS):
+            n = n_tokens if i < n_long else int(rng.integers(6, 24))
+            b.add_document({"text": [text(n)]}, stored={"id": f"s{i}"})
+    return b.build()
+
+
 def phase_phrase_kernel(device, seg, stats, tag):
     """Phase 3, phrase kernel: batches through ``batch_phrase_search``
-    on the check segment and on a segment of pervasive ties; every
-    launch is held against the plain version, every hit list against
-    the oracle, and the launches must cover both slop groups, every
-    kmax bucket and 64 and 256 query lanes."""
+    on the check segment, on a segment of pervasive ties and on
+    :func:`straddle_segment`; every launch is held against the plain
+    version and run twice for the same bits, every hit list against the
+    oracle, and the launches must cover both slop groups, every kmax
+    bucket, 64, 128 and 256 query lanes, 200 queries of one launch on
+    one first term and the long doc's phrase tf of 1,500."""
+    import torch
+
     from fugu_tpu_torch.index.schema import DOCS_SCHEMA
     from fugu_tpu_torch.index.segment import SegmentBuilder
     from fugu_tpu_torch.ops import oracle
@@ -626,6 +668,13 @@ def phase_phrase_kernel(device, seg, stats, tag):
                                       int(rng.integers(1, 3)))
                           for _ in range(38)]
         + [phrase_plan(pick(7), 2), phrase_plan(LONG_PAIR, 1, 1.5)],
+        "128 lanes": [phrase_plan(pick(2)) for _ in range(99)]
+        + [phrase_plan(LONG_PAIR)],
+        # 200 of 256 queries open with the segment's most frequent term
+        "one first term, 256 lanes": [
+            phrase_plan([head[0]] + pick_head(int(rng.integers(1, 3))))
+            for _ in range(200)
+        ] + [phrase_plan(pick(2)) for _ in range(56)],
     }
     tied_docs = (ps.PHRASE_TOPK + 8) * ps.BM_FINE_DOCS
     b = SegmentBuilder(DOCS_SCHEMA)
@@ -637,9 +686,34 @@ def phase_phrase_kernel(device, seg, stats, tag):
         ("foo", "bar", "baz"), ("bar", "baz", "qux"),
         ("foo", "bar", "baz", "qux"), ("qux", "foo"))]
 
-    err, seen, lanes = 0.0, set(), set()
+    # docs starting at every offset within KGAP rows of a chunk boundary
+    edge = straddle_segment()
+    edge_st = oracle.IndexStats([edge])
+    usable = ps.BM_CHUNK - ps.KGAP
+    doc_row = ps.stream_doc_rows(
+        edge, "text", ps.build_stream_arrays(edge, "text", edge_st).nb_pad)
+    starts = doc_row[:, :-1][np.diff(doc_row, axis=1) > 0].astype(np.int64)
+    boundary = np.round(starts / usable).astype(np.int64)
+    near = starts - boundary * usable
+    offsets = set(near[(boundary >= 1) & (abs(near) <= 2 * ps.KGAP)].tolist())
+    if not set(range(-ps.KGAP, ps.KGAP + 1)) <= offsets:
+        fail(f"straddle segment: doc starts at chunk offsets {sorted(offsets)}")
+    erng = np.random.default_rng(SEED + 104)
+    evocab = [f"p{i:02d}" for i in range(12)]
+    edge_plans = [phrase_plan(w) for w in (
+        EDGE_PHRASE[:2], EDGE_PHRASE[1:], EDGE_PHRASE,
+        (EDGE_PHRASE[2], EDGE_PHRASE[0]))]
+    edge_plans += [phrase_plan(list(erng.choice(evocab, size=int(k))))
+                   for k in erng.integers(2, 5, size=20)]
+    edge_plans += [phrase_plan(list(erng.choice(evocab, size=int(k))), int(sl))
+                   for k, sl in zip(erng.integers(2, 5, size=12),
+                                    erng.integers(1, 3, size=12))]
+    edge_plans.append(phrase_plan(EDGE_PHRASE, 2))
+
+    err, seen, lanes, max_tf, one_first = 0.0, set(), set(), 0, 0
     runs = [(seg, stats, plans, name) for name, plans in batches.items()]
     runs.append((tied, oracle.IndexStats([tied]), tied_plans, "ties"))
+    runs.append((edge, edge_st, edge_plans, "chunk straddle"))
     for s, st, plans, name in runs:
         limits = [10 if i % 3 else 100 for i in range(len(plans))]
         if name == "ties":
@@ -650,21 +724,33 @@ def phase_phrase_kernel(device, seg, stats, tag):
             fail(f"phrase check {name}: the stream launched nothing")
         for args in rec.calls:
             err = max(err, compare_phrase(args, ps))
-            seen.add((args[8], args[4].shape[1]))
-            lanes.add(args[4].shape[0])
+            qterm = args[5]
+            seen.add((args[9], qterm.shape[1]))
+            lanes.add(qterm.shape[0])
+            max_tf = max(max_tf, int(ps.phrase_stream_plain(*args)[1].max()) >> 8)
+            first = qterm[:, 0][qterm[:, 0] >= 0].long()
+            if first.numel():
+                one_first = max(one_first, int(torch.bincount(first).max()))
         for plan, lim, hits in zip(plans, limits, got):
             exp = [(h.score, h.doc) for h in oracle.search([s], plan, lim, st)]
             if hits is None or hits_key(hits) != hits_key(exp):
                 fail(f"phrase stream hits differ from the oracle ({name})")
     want = {(0, 2), (0, 4), (0, 8), (2, 7)}
-    if not want <= seen or not {64, 256} <= lanes:
+    if not want <= seen or not {64, 128, 256} <= lanes:
         fail(f"phrase check launched (smax, kmax) {sorted(seen)} and "
              f"query lanes {sorted(lanes)}")
+    if max_tf < 1500 or one_first < 200:
+        fail(f"phrase check: largest phrase tf {max_tf}, most queries on "
+             f"one first term {one_first}")
+    info = ps.kernel_info()
     log(f"kernel check {tag}: phrase kernel matched its plain version on "
         f"(smax, kmax) {sorted(seen)}, query lanes {sorted(lanes)}, a "
-        f"{len(LONG_DOC.split())}-token doc and {tied_docs} tied docs; max "
-        f"abs err {err!r} (tolerance {PHRASE_ATOL}, classes identical); "
-        f"hits equal the oracle")
+        f"{len(LONG_DOC.split())}-token doc (phrase tf {max_tf}), "
+        f"{one_first} queries of one launch on one first term, "
+        f"{tied_docs} tied docs and docs starting at chunk offsets "
+        f"{sorted(offsets)}; each launch twice with the same "
+        f"bits; max abs err {err!r} (tolerance {PHRASE_ATOL}, classes "
+        f"identical); hits equal the oracle; kernel {info}")
     return err
 
 
@@ -717,7 +803,7 @@ def phase_phrase_batch(ni, seg, stats, tag):
     t2 = time.perf_counter()
     ps.phrase_stream_collect(handle)
     split = [round(t, 4) for t in (t1 - t0, t2 - t1, time.perf_counter() - t2)]
-    smaxes = sorted({a[8] for a in calls})
+    smaxes = sorted({a[9] for a in calls})
     if smaxes != [0, 2]:
         fail(f"the phrase batch launched smax {smaxes}, want [0, 2]")
     t0 = time.perf_counter()
@@ -1171,6 +1257,8 @@ def main() -> None:
                 "share": bound_ms / ms, "library_ms": None,
                 "library": "no single PyTorch call computes it",
             })
+            if name == "phrase_stream":
+                kernels[-1].update(ps.kernel_info())
             log(f"kernel time {tag}: {name} {ms:.3f} ms vs plain "
                 f"{plain_ms:.3f} ms per warm pass of its batch "
                 f"({len(calls)} launches), bound {bound_ms:.4f} ms by "

@@ -29,6 +29,12 @@ query) count IS the oracle's phrase_tf, and the kernel's maxima of
 matched by one-hot matmuls against bf16 weight planes, the staged
 operands here are compact: per query the union slot of each of its
 terms and its slop, a term -> union slot table, and the phrase weight.
+The kernel walks whole docs through ``doc_row`` (each doc's first raw
+row inside its block, :func:`stream_doc_rows`) and reads raw row ``r``
+of block ``j`` at pack index ``(offs[j] + r // (BM_CHUNK - KGAP)) *
+BM_CHUNK + r % (BM_CHUNK - KGAP)`` (a row and its KGAP successors share
+a chunk), so every row is read once per launch for every query of the
+launch.
 
 A postprocessor ships each query's top-K fine blocks SORTED BY BOUND
 (lowest block id first among equal bounds), and the host matches them
@@ -414,7 +420,8 @@ def build_stream_arrays(
 class TokenStreamPack:
     """Forward token stream of one (segment, field) on one device,
     block-major and chunk-overlapped for the phrase kernel (see module
-    docstring): ``d_offs`` (chunk offsets per block), ``d_tok`` (rows),
+    docstring): ``d_offs`` (chunk offsets per block), ``d_doc_row``
+    (each doc's first raw row inside its block), ``d_tok`` (rows),
     ``d_cv`` and ``d_fid`` (per-doc constants) are the kernel's stream
     operands."""
 
@@ -428,10 +435,14 @@ class TokenStreamPack:
         if not self.ok:
             return
         self.chunk_offs = arrs.chunk_offs
+        doc_row = stream_doc_rows(segment, field, arrs.nb_pad)
 
         from fugu_tpu_torch.ops import residency
 
-        self.hbm_bytes = arrs.pack.nbytes + arrs.cv.nbytes + arrs.fid.nbytes
+        self.hbm_bytes = (
+            arrs.pack.nbytes + arrs.cv.nbytes + arrs.fid.nbytes
+            + doc_row.nbytes
+        )
         residency.reserve(
             ("tok", id(segment), field),
             self.hbm_bytes,
@@ -439,10 +450,42 @@ class TokenStreamPack:
             functools.partial(_evict_token_stream, field=field),
             kind="token_stream",
         )
-        self.d_offs, self.d_tok, self.d_cv, self.d_fid = (
+        self.d_offs, self.d_doc_row, self.d_tok, self.d_cv, self.d_fid = (
             torch.from_numpy(a).to(device)
-            for a in (arrs.chunk_offs, arrs.pack, arrs.cv, arrs.fid)
+            for a in (arrs.chunk_offs, doc_row, arrs.pack, arrs.cv, arrs.fid)
         )
+
+
+def stream_doc_rows(segment: Segment, field: str, nb_pad: int) -> np.ndarray:
+    """i32[nb_pad, BM_BLOCK_DOCS + 1]: the raw stream row, counted from
+    its block's first row, at which each doc of the block starts, and
+    the block's row count last (blocks past the segment hold zeros).  A
+    doc owns rows [doc_row[j, d], doc_row[j, d + 1]): its positions,
+    then KGAP sentinel rows; a doc with no live token owns none.  The
+    geometry is build_stream_arrays's, by the same arithmetic, over the
+    whole segment."""
+    offs = segment.pos_offsets[field]
+    data = segment.pos_data[field]
+    base = segment.field_entry_base[field]
+    n_ent = len(offs) - 1
+    e_docs = segment.e_doc[base : base + n_ent].astype(np.int64)
+    doc_count = segment.doc_count
+    lens = (offs[1:] - offs[:-1]).astype(np.int64)
+    maxpos = np.full(doc_count, -1, dtype=np.int64)
+    if n_ent:
+        last = data[np.maximum(offs[1:] - 1, 0)].astype(np.int64)
+        last = np.where(lens > 0, last, -1)
+        np.maximum.at(maxpos, e_docs, last)
+    has = (maxpos >= 0) & ~segment.tombstones[:doc_count]
+    dlen = np.where(has, maxpos + 1 + KGAP, 0)
+    row0 = np.zeros(doc_count + 1, dtype=np.int64)
+    np.cumsum(dlen, out=row0[1:])
+    doc = np.minimum(
+        np.arange(nb_pad, dtype=np.int64)[:, None] * BM_BLOCK_DOCS
+        + np.arange(BM_BLOCK_DOCS + 1, dtype=np.int64)[None, :],
+        doc_count,
+    )
+    return (row0[doc] - row0[doc[:, :1]]).astype(np.int32)
 
 
 def _ragged_positions(data, offs, lens, keep_e):
@@ -510,11 +553,13 @@ def get_token_stream(segment: Segment, field: str, stats, device) -> Optional[
 
 
 #: union slots a dispatch group may use (the top PU_BUCKETS rung); the
-#: kernel keeps one query mask per slot, and both versions treat a slot
-#: outside [0, U_MAX) as no slot
+#: kernel keeps the queries opening with each slot and a filter of their
+#: second slots, and both versions treat a slot outside [0, U_MAX) as no
+#: slot
 U_MAX = PU_BUCKETS[-1]
-#: queries per kernel thread block (one bit of a 64-bit mask each)
-Q_TILE = 64
+#: queries a launch may carry (the top PB_BUCKETS rung): the kernel
+#: reads the stream once for all of them
+MAX_B = PB_BUCKETS[-1]
 
 #: kernel launches (not plain-version calls) since process start
 launches = 0
@@ -535,10 +580,15 @@ def _row_slots(rows, slot_of):
     return torch.where((tid < n_terms) & (s >= 0) & (s < U_MAX), s, -1)
 
 
-def phrase_stream_plain(offs, tok, cv, fid, qterm, qslop, wp, slot_of, smax):
+def phrase_stream_plain(
+    offs, doc_row, tok, cv, fid, qterm, qslop, wp, slot_of, smax
+):
     """Plain PyTorch version of the phrase kernel, same contract.
 
-    ``offs`` i32[nb_pad + 1] chunk offsets per 512-doc block; ``tok``
+    ``offs`` i32[nb_pad + 1] chunk offsets per 512-doc block;
+    ``doc_row`` i32[nb_pad, BM_BLOCK_DOCS + 1] each doc's first raw row
+    inside its block (:func:`stream_doc_rows`; the kernel walks docs by
+    it, this version reads the chunks and ignores it); ``tok``
     i32[>= offs[-1] * BM_CHUNK] packed rows (doc_local << 22 | tid);
     ``cv`` f32 and ``fid`` i32 [nb_pad * 1024]: each doc's BM25
     denominator constant and fieldnorm id at [block * 1024 + doc_local];
@@ -642,20 +692,52 @@ def phrase_stream_plain(offs, tok, cv, fid, qterm, qslop, wp, slot_of, smax):
     return amax, acls
 
 
-def phrase_stream(offs, tok, cv, fid, qterm, qslop, wp, slot_of, smax):
+def phrase_stream(
+    offs, doc_row, tok, cv, fid, qterm, qslop, wp, slot_of, smax
+):
     """The phrase kernel (``csrc/phrase.cu``); contract as
-    :func:`phrase_stream_plain`, which runs instead for CPU tensors."""
+    :func:`phrase_stream_plain`, which runs instead for CPU tensors.
+    The operands are checked on either device; on a CUDA device the
+    kernel launches or this raises."""
     global launches
+    _check_operands(offs, doc_row, tok, cv, fid, qterm, qslop, wp, slot_of,
+                    smax)
     if tok.device.type == "cpu":
         return phrase_stream_plain(
-            offs, tok, cv, fid, qterm, qslop, wp, slot_of, smax
+            offs, doc_row, tok, cv, fid, qterm, qslop, wp, slot_of, smax
         )
     dev = tok.device
+    b_pad, kmax = qterm.shape
+    nb_pad = offs.numel() - 1
+    amax = torch.empty(
+        (nb_pad, FINE_PER_BLOCK, b_pad), dtype=torch.float32, device=dev
+    )
+    acls = torch.empty_like(amax, dtype=torch.int32)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fugu_phrase(
+            _ptr(offs), _ptr(doc_row), nb_pad, _ptr(tok), tok.numel(),
+            _ptr(cv), _ptr(fid), _ptr(qterm), kmax, _ptr(qslop), smax,
+            _ptr(wp), _ptr(slot_of), slot_of.numel(), b_pad, _ptr(amax),
+            _ptr(acls), ctypes.c_void_p(stream),
+        )
+    cuda_build.check(err, "phrase launch")
+    launches += 1
+    return amax, acls
+
+
+def _check_operands(offs, doc_row, tok, cv, fid, qterm, qslop, wp, slot_of,
+                    smax):
+    """Raise unless the operands are what the kernel takes: contiguous,
+    of its types, on one device, and of consistent shapes."""
+    dev = tok.device
     for name, t, dtype in (
-        ("offs", offs, torch.int32), ("tok", tok, torch.int32),
-        ("cv", cv, torch.float32), ("fid", fid, torch.int32),
-        ("qterm", qterm, torch.int32), ("qslop", qslop, torch.int32),
-        ("wp", wp, torch.float32), ("slot_of", slot_of, torch.int32),
+        ("offs", offs, torch.int32), ("doc_row", doc_row, torch.int32),
+        ("tok", tok, torch.int32), ("cv", cv, torch.float32),
+        ("fid", fid, torch.int32), ("qterm", qterm, torch.int32),
+        ("qslop", qslop, torch.int32), ("wp", wp, torch.float32),
+        ("slot_of", slot_of, torch.int32),
     ):
         if t.device != dev or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(
@@ -666,32 +748,19 @@ def phrase_stream(offs, tok, cv, fid, qterm, qslop, wp, slot_of, smax):
         raise ValueError(f"qterm must be [b_pad, kmax], got {qterm.shape}")
     b_pad, kmax = qterm.shape
     nb_pad = offs.numel() - 1
-    if b_pad % Q_TILE or not 1 <= kmax <= KMAX or not 0 <= smax <= MAX_SLOP:
-        raise ValueError(f"b_pad={b_pad} kmax={kmax} smax={smax}")
-    if kmax - 1 + smax > KGAP:
+    if not 1 <= b_pad <= MAX_B or not 1 <= kmax <= KMAX:
+        raise ValueError(f"b_pad={b_pad} kmax={kmax}")
+    if not 0 <= smax <= MAX_SLOP or kmax - 1 + smax > KGAP:
         raise ValueError(f"kmax {kmax} - 1 + smax {smax} exceeds KGAP")
     if qslop.numel() != b_pad or wp.numel() != b_pad:
         raise ValueError("qslop and wp need one entry per query")
+    if tuple(doc_row.shape) != (nb_pad, BM_BLOCK_DOCS + 1):
+        raise ValueError(
+            f"doc_row must be [{nb_pad}, {BM_BLOCK_DOCS + 1}], got "
+            f"{tuple(doc_row.shape)}"
+        )
     if min(cv.numel(), fid.numel()) < nb_pad * 1024 or slot_of.numel() < 1:
         raise ValueError("cv/fid shorter than nb_pad * 1024, or no slot_of")
-    if nb_pad > 65535:  # the grid's y dimension: 33.5M docs
-        raise ValueError(f"{nb_pad} blocks exceed the phrase grid")
-    amax = torch.empty(
-        (nb_pad, FINE_PER_BLOCK, b_pad), dtype=torch.float32, device=dev
-    )
-    acls = torch.empty_like(amax, dtype=torch.int32)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fugu_phrase(
-            _ptr(offs), nb_pad, _ptr(tok), tok.numel(), _ptr(cv), _ptr(fid),
-            _ptr(qterm), kmax, _ptr(qslop), smax, _ptr(wp), _ptr(slot_of),
-            slot_of.numel(), b_pad, _ptr(amax), _ptr(acls),
-            ctypes.c_void_p(stream),
-        )
-    cuda_build.check(err, "phrase launch")
-    launches += 1
-    return amax, acls
 
 
 def _lib():
@@ -700,8 +769,21 @@ def _lib():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         v, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [v, i, v, ll, v, v, v, i, v, i, v, v, i, i, v, v, v]
+        fn.argtypes = [v, v, i, v, ll, v, v, v, i, v, i, v, v, i, i, v, v, v]
+        info = lib.fugu_phrase_info
+        info.restype = ctypes.c_int
+        info.argtypes = [v, v, v]
     return lib
+
+
+def kernel_info() -> Dict[str, int]:
+    """The built kernel's registers a thread, static shared bytes a
+    block and resident blocks per SM on the current CUDA device."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    err = _lib().fugu_phrase_info(*(ctypes.byref(v) for v in vals))
+    cuda_build.check(err, "phrase kernel attributes")
+    return dict(zip(("registers", "shared_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
 
 
 # --------------------------------------------------------------------------
@@ -897,7 +979,7 @@ def _dispatch_group(pack, q_idx, clauses, stats, smax=0):
     )
     dev = pack.d_tok.device
     amax, acls = phrase_stream(
-        pack.d_offs, pack.d_tok, pack.d_cv, pack.d_fid,
+        pack.d_offs, pack.d_doc_row, pack.d_tok, pack.d_cv, pack.d_fid,
         *(torch.from_numpy(a).to(dev) for a in (qterm, qslop, wp, slot_of)),
         smax,
     )

@@ -82,12 +82,17 @@ REWRITTEN = {
         "PHRASE_MIN_BATCH", "PHRASE_AUTO_MIN", "HOST_NS_PER_MIN_POSTING",
         "HOST_NS_PER_INTER_DOC", "STREAM_NS_PER_TOKEN", "STREAM_FIXED_MS",
         "STREAM_MS_PER_PHRASE", "phrase_stream_mode", "want_stream",
-        # torch tensors on the index's device
-        "TokenStreamPack", "get_token_stream",
-        # the TPU kernel and its CUDA and plain PyTorch counterparts
+        # torch tensors on the index's device, with each doc's first raw
+        # row for the kernel's walk over whole docs
+        "TokenStreamPack", "get_token_stream", "stream_doc_rows",
+        # the TPU kernel and its CUDA and plain PyTorch counterparts; the
+        # kernel reads the stream once for all MAX_B queries of a launch
         "_phrase_kernel", "_phrase_callable", "_KERNEL_CACHE", "_get_kernel",
-        "U_MAX", "Q_TILE", "launches", "_PLAIN_TF_ELEMS", "_PLAIN_PAIRS",
+        "U_MAX", "MAX_B", "launches", "_PLAIN_TF_ELEMS", "_PLAIN_PAIRS",
         "_row_slots", "phrase_stream_plain", "phrase_stream", "_lib",
+        # operand checks on either device, and the built kernel's
+        # registers, shared bytes and blocks per SM
+        "_check_operands", "kernel_info",
         # staging, postproc and the entry points on a torch device
         "phrase_stream_begin", "stage_group_weights", "stage_group",
         "_dispatch_group", "_PHRASE_POST_CACHE", "_get_phrase_post",

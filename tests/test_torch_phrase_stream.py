@@ -386,9 +386,10 @@ def test_plain_kernel_matches_reference_kernel(segs, name, monkeypatch):
         qterm, qslop, pwp, slot_of, *_ = ps.stage_group(
             arrs.tid_of, arrs.n_terms, q_idx, clauses, stats, smax
         )
+        doc_row = ps.stream_doc_rows(segs[1], "text", arrs.nb_pad)
         args = [torch.from_numpy(a) for a in (
-            arrs.chunk_offs, arrs.pack, arrs.cv, arrs.fid, qterm, qslop,
-            pwp, slot_of)] + [smax]
+            arrs.chunk_offs, doc_row, arrs.pack, arrs.cv, arrs.fid, qterm,
+            qslop, pwp, slot_of)] + [smax]
         outs = [ps.phrase_stream(*args)]
         with monkeypatch.context() as m:
             m.setattr(ps, "_PLAIN_TF_ELEMS", 1)
@@ -407,6 +408,121 @@ def test_plain_kernel_matches_reference_kernel(segs, name, monkeypatch):
         "wide": {(0, 128, 2)}, "mixed": {(0, 64, 4), (2, 64, 4)},
     }[name]
     assert seen == want_keys
+
+
+def _pack_index(chunk_offs, block, raw):
+    """The kernel's pack index of raw row ``raw`` (counted from its
+    block's first row) of block ``block``: the block's chunks hold
+    BM_CHUNK - KGAP new rows each (csrc/phrase.cu)."""
+    usable = ps.BM_CHUNK - ps.KGAP
+    return (chunk_offs.astype(np.int64)[block] + raw // usable) * (
+        ps.BM_CHUNK) + raw % usable
+
+
+def test_doc_rows_address_each_token(segs):
+    """stream_doc_rows read through the kernel's addressing (_pack_index)
+    gives back every live
+    doc's tokens at their positions and sentinels everywhere else in its
+    rows (holes, the multi-value gap, the KGAP rows after it); a doc
+    owns maxpos + 1 + KGAP rows, a tombstoned doc none, a padded block
+    nothing, and docs straddle chunk boundaries."""
+    _ref, port = segs
+    arrs = ps.build_stream_arrays(port, "text", oracle.IndexStats([port]))
+    doc_row = ps.stream_doc_rows(port, "text", arrs.nb_pad)
+    assert doc_row.shape == (arrs.nb_pad, ps.BM_BLOCK_DOCS + 1)
+    assert doc_row.dtype == np.int32 and arrs.nb_pad > arrs.n_blocks
+    assert not doc_row[arrs.n_blocks:].any()
+    offs = port.pos_offsets["text"]
+    data = port.pos_data["text"]
+    base = port.field_entry_base["text"]
+    tid_entry = np.zeros(len(offs) - 1, dtype=np.int64)
+    for term, info in port.terms["text"].items():
+        tid_entry[info.start - base : info.start - base + info.doc_freq] = (
+            arrs.tid_of[term])
+    lens = np.diff(offs).astype(np.int64)
+    docs = np.repeat(port.e_doc[base : base + len(lens)].astype(np.int64),
+                     lens)
+    tids = np.repeat(tid_entry, lens)
+    pos = data[: int(offs[-1])].astype(np.int64)
+    blk, local = docs // ps.BM_BLOCK_DOCS, docs % ps.BM_BLOCK_DOCS
+    live = ~port.tombstones[docs]
+    at = _pack_index(arrs.chunk_offs, blk[live],
+                       doc_row[blk[live], local[live]] + pos[live])
+    np.testing.assert_array_equal(
+        arrs.pack[at], (local[live] << ps.TID_BITS | tids[live]).astype(
+            np.int32))
+    maxpos = np.full(port.doc_count, -1)
+    np.maximum.at(maxpos, docs, pos)
+    d = np.arange(port.doc_count)
+    start = doc_row[d // ps.BM_BLOCK_DOCS, d % ps.BM_BLOCK_DOCS].astype(
+        np.int64)
+    n_rows = doc_row[d // ps.BM_BLOCK_DOCS, d % ps.BM_BLOCK_DOCS + 1] - start
+    want = np.where(port.tombstones[d] | (maxpos < 0), 0,
+                    maxpos + 1 + ps.KGAP)
+    np.testing.assert_array_equal(n_rows, want)
+    # every row a doc owns: its tokens and nothing else
+    owner = np.repeat(d, n_rows)
+    raw = np.repeat(start, n_rows) + (
+        np.arange(int(n_rows.sum())) - np.repeat(np.cumsum(n_rows) - n_rows,
+                                                 n_rows))
+    rows = arrs.pack[_pack_index(arrs.chunk_offs, owner // ps.BM_BLOCK_DOCS,
+                                   raw)]
+    assert int((rows != ps.SENT_ROW).sum()) == int(live.sum())
+    assert not ((rows >> ps.TID_BITS) != owner % ps.BM_BLOCK_DOCS)[
+        rows != ps.SENT_ROW].any()
+    # each block's rows end where its last chunk's new rows end
+    usable = ps.BM_CHUNK - ps.KGAP
+    n_chunks = np.diff(arrs.chunk_offs)
+    np.testing.assert_array_equal(
+        (doc_row[:, -1].astype(np.int64) + usable - 1) // usable, n_chunks)
+    lives = n_rows > 0
+    straddle = (start // usable) != ((start + n_rows - 1) // usable)
+    assert (straddle & lives).sum() >= 3
+    assert (port.tombstones[d] & ~lives).any()
+
+
+@pytest.mark.parametrize("b_pad", [64, 128, 256])
+def test_wrapper_operands_by_b_pad(segs, b_pad):
+    """The wrapper takes a launch of 64, 128 or 256 query lanes with its
+    doc_row and gives [nb_pad, FINE_PER_BLOCK, b_pad] maxima and
+    classes, the plain version's on the CPU; it refuses what the kernel
+    would not take, before choosing the device."""
+    port = segs[1]
+    stats = oracle.IndexStats([port])
+    arrs = ps.build_stream_arrays(port, "text", stats)
+    rng = np.random.default_rng(b_pad)
+    plans = [to_port_plan(_phrase_plan([f"w{x}" for x in
+                                        rng.integers(0, 30, size=2)]))
+             for _ in range(b_pad // 2 + 1)]
+    clauses = {i: ps.eligible_phrase(p) for i, p in enumerate(plans)}
+    (q_idx, smax), = ps.split_dispatch_groups(list(clauses), clauses)
+    qterm, qslop, wp, slot_of, _u, got_b, kmax = ps.stage_group(
+        arrs.tid_of, arrs.n_terms, q_idx, clauses, stats, smax)
+    assert got_b == b_pad and qterm.shape == (b_pad, kmax)
+    doc_row = ps.stream_doc_rows(port, "text", arrs.nb_pad)
+    args = [torch.from_numpy(a) for a in (
+        arrs.chunk_offs, doc_row, arrs.pack, arrs.cv, arrs.fid, qterm, qslop,
+        wp, slot_of)] + [smax]
+    amax, acls = ps.phrase_stream(*args)
+    assert amax.shape == acls.shape == (arrs.nb_pad, ps.FINE_PER_BLOCK, b_pad)
+    assert amax.dtype == torch.float32 and acls.dtype == torch.int32
+    want_max, want_cls = ps.phrase_stream_plain(*args)
+    assert torch.equal(acls, want_cls) and torch.equal(
+        amax.view(torch.int32), want_max.view(torch.int32))
+    assert bool((acls[:, :, len(q_idx):] == -1).all())  # padding lanes
+    bad = {
+        "doc_row": (1, torch.from_numpy(doc_row[:-1].copy())),
+        "doc_row type": (1, torch.from_numpy(doc_row).to(torch.int64)),
+        "b_pad": (5, torch.from_numpy(np.tile(qterm, (512 // b_pad, 1)))),
+        "kmax": (5, torch.from_numpy(np.pad(qterm, ((0, 0), (0, 9 - kmax)),
+                                            constant_values=-1))),
+        "qterm strides": (5, torch.from_numpy(qterm).t()),
+        "wp": (7, torch.from_numpy(wp[:-1].copy())),
+        "smax": (9, ps.MAX_SLOP + 1),
+    }
+    for name, (i, val) in bad.items():
+        with pytest.raises(ValueError):
+            ps.phrase_stream(*args[:i], val, *args[i + 1:])
 
 
 def test_phrase_post_matches_reference():
