@@ -49,7 +49,37 @@ no CUDA device exists or the checkout is missing.  Phases:
    oracle over the same snapshot; phase A and the block scorer must have
    run.  It prints ingest records/s, the segments before and after
    compaction, the pass's seconds, the device merge against the host
-   upload of the merged pack, and the batch's warm QPS.
+   upload of the merged pack, and the batch's warm QPS;
+7. the server and the CLI, through their entry points.  (a) ``python3
+   -m fugu_tpu_torch serve --port P --config FILE`` starts as a process
+   of its own on the write path's data directory, with no device
+   argument, so on the card; it must log that it loaded the kernels
+   before it answers /health.  The write path's 256 query strings go to
+   ``/search/json`` from 64 concurrent clients (a client process,
+   ``chip_smoke.py --drive``): every response must be 200 and equal the
+   answers phase 6 held to the oracle, in ids, order and scores;
+   ``/metrics`` must show resident device bytes and fewer
+   ``search_many`` calls than requests (the micro-batcher coalesced);
+   ``python3 -m fugu_tpu_torch namespace search`` must print the hits of
+   the same HTTP call; SIGTERM must end the server with exit code 0.  It
+   prints the server's start-up seconds.  (b) Phase 4's 1M-doc segment
+   is mounted as a namespace's docs index (its files linked beside its
+   generation-1 manifest; the seeded corpus stores each doc's id, so a
+   hit carries id and score) and served in process, the app on a thread
+   with its own event loop.  256 query strings over its vocabulary,
+   ``per_page`` 10, are held to the oracle in process, then sent by
+   closed-loop clients at 64 and at 256 connections: an untimed pass of
+   2,048 requests, a timed pass of 2,048, all of whose responses must be
+   200 and equal the in-process answers, and a pass of 512 under
+   ``torch.profiler`` for the device's idle share.  Per level it prints
+   one JSON line: QPS, p50 and p99 request latency, ``search_many``
+   calls, mean queries a call and their summed seconds' share of the
+   level's wall time, the mean of each stage's histogram
+   from ``/metrics`` (queue wait, executor wait and the request total
+   per request; engine per ``search_many`` call; serialisation per
+   response), the kernels' launches, the plans per route and the idle
+   share.  Phase A and the block scorer must have launched during the
+   timed pass, and a batch must hold more than one query on average.
 
 The last lines are the ``kernels`` JSON line (per kernel: launches in
 the 3 warm passes and per pass, ms and plain ms per warm pass, the
@@ -64,12 +94,18 @@ but the bounds, which are computed from the recorded calls' arguments.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -98,6 +134,19 @@ WRITE_RECORDS = 262_144
 WRITE_BATCHES = 8
 WRITE_CHURN = 2_048
 WRITE_PAGE = 10
+#: the served phases: concurrent clients against the write path's
+#: namespace; then clients per level, requests per timed level (after an
+#: untimed pass of as many) and per profiled pass on the 1M namespace
+SERVE_CLIENTS = 64
+LOAD_LEVELS = (64, 256)
+LOAD_REQUESTS = 2_048
+LOAD_PROFILED = 512
+#: the per-stage histograms of /metrics that a load level reports
+LOAD_STAGES = (
+    "fugu_search_queue_wait_seconds", "fugu_search_exec_wait_seconds",
+    "fugu_search_engine_seconds", "fugu_search_serialize_seconds",
+    "fugu_search_seconds",
+)
 #: the check segment's doc that spans several 2048-row stream chunks
 LONG_PAIR = ("t00005", "t00007")
 LONG_DOC = " ".join([" ".join(LONG_PAIR)] * 1500)
@@ -862,11 +911,15 @@ def make_records(ids, seed: int, namespace: str, vocab_size=VOCAB_SIZE):
 
 
 def make_query_strings(seg, namespace: str, n_queries: int = 256,
-                       seed_offset: int = 3):
+                       seed_offset: int = 3, facet_fmt: str = None):
     """bench.py's query classes as query strings with filters, [(query,
     filters)]: should (one to four df-weighted terms), ``+a +b``,
     ``a -b``, facet filters through ``filters``, and quoted phrases, in
-    the proportions 128 : 40 : 32 : 32 : 24."""
+    the proportions 128 : 40 : 32 : 32 : 24.  ``facet_fmt`` formats one
+    of the 20 sources into a facet path; by default the path that
+    :func:`make_records` gives a record of ``namespace``."""
+    if facet_fmt is None:
+        facet_fmt = f"/namespace/{namespace}/data/src{{}}"
     rng = np.random.default_rng(SEED + seed_offset)
     pick = df_picker(seg, rng)
     counts = {"should": 128, "must": 40, "mustnot": 32, "facet": 32,
@@ -886,7 +939,7 @@ def make_query_strings(seg, namespace: str, n_queries: int = 256,
             elif cls == "facet":
                 src = int(rng.integers(0, 20))
                 out.append((" ".join(pick(int(rng.integers(1, 4)))),
-                            [f"/namespace/{namespace}/data/src{src}"]))
+                            [facet_fmt.format(src)]))
             else:
                 out.append(('"' + " ".join(pick(2)) + '"', []))
     return out[:n_queries]
@@ -933,7 +986,10 @@ def phase_write_path(device, tag, work: Path, n_records: int = WRITE_RECORDS,
                      vocab_size: int = VOCAB_SIZE, n_queries: int = 256):
     """Phase 6: the namespace write path through ``DatasetManager`` on
     ``device`` (see the module docstring); returns the launches of phase
-    A and the block scorer in the warm passes of the query batch."""
+    A and the block scorer in the warm passes of the query batch, the
+    namespace's name and data directory, its query strings and their
+    answers after the restore, [(id, score)] each, which were held to
+    the oracle."""
     from fugu_tpu_torch.config import ServerConfig
     from fugu_tpu_torch.engine.manager import DatasetManager
     from fugu_tpu_torch.ops import batch_scorer as ba
@@ -1095,9 +1151,417 @@ def phase_write_path(device, tag, work: Path, n_records: int = WRITE_RECORDS,
             fail(f"write path: spilled {spilled}, restored {restored}")
         log(f"spill {tag}: {spilled} segments spilled in {t_spill:.2f} s, "
             f"restored in {t_restore:.2f} s")
-        check_search_many(ds, queries, run(), "after spill and restore", tag)
-        return launches
+        final = run()
+        check_search_many(ds, queries, final, "after spill and restore", tag)
+        return {
+            "launches": launches, "namespace": ns,
+            "data_path": work / "data", "queries": queries,
+            "expected": [[(r.id, r.score) for r in res] for res in final],
+        }
     finally:
+        mgr.close()
+
+
+# -- phase 7: the server and the CLI -------------------------------------------
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http(method: str, url: str, body=None, timeout: float = 120.0):
+    """(status, text) of one request."""
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(
+        url, data=data, method=method,
+        headers={"Content-Type": "application/json"} if data else {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def scrape(base: str) -> dict:
+    """/metrics as {sample name with labels: value}."""
+    status, text = http("GET", base + "/metrics")
+    if status != 200:
+        fail(f"/metrics answered {status}")
+    out = {}
+    for line in text.splitlines():
+        name, _, value = line.rpartition(" ")
+        if name:
+            out[name] = float(value)
+    return out
+
+
+def search_body(query, filters, namespace: str) -> dict:
+    return {"query": query, "filters": list(filters), "namespace": namespace,
+            "page": {"page": 0, "per_page": WRITE_PAGE}}
+
+
+def served_hits(text: str):
+    """[(id, float32 score)] of a search response body."""
+    return [(r["id"], np.float32(r["score"]))
+            for r in json.loads(text)["results"]]
+
+
+def drive_main(job_path: Path) -> None:
+    """The load client, a process of its own (``chip_smoke.py --drive
+    JOB``): ``concurrency`` closed-loop clients, one keep-alive
+    connection each, POST the job's bodies in turn to ``url`` until
+    ``total`` requests are answered.  It prints READY once every
+    connection is open, starts at a line on its standard input, prints
+    DONE after the last answer, and writes each request's status and
+    seconds, the loop's wall seconds and the first ``keep`` response
+    bodies to the job's ``out`` file."""
+    import asyncio
+
+    import aiohttp
+
+    job = json.loads(job_path.read_text())
+    bodies = [json.dumps(b).encode() for b in job["bodies"]]
+    total, keep = job["total"], job["keep"]
+    statuses, seconds, texts = [0] * total, [0.0] * total, [None] * keep
+    headers = {"Content-Type": "application/json"}
+
+    async def run():
+        nxt = 0
+        conn = aiohttp.TCPConnector(limit=0)
+        timeout = aiohttp.ClientTimeout(total=600)
+        async with aiohttp.ClientSession(connector=conn,
+                                         timeout=timeout) as pool:
+            async def open_connection():
+                async with pool.get(job["base"] + "/hi") as resp:
+                    await resp.read()
+
+            await asyncio.gather(
+                *(open_connection() for _ in range(job["concurrency"])))
+            print("READY", flush=True)
+            await asyncio.get_running_loop().run_in_executor(
+                None, sys.stdin.readline)
+
+            async def client():
+                nonlocal nxt
+                while nxt < total:
+                    i, nxt = nxt, nxt + 1
+                    t0 = time.perf_counter()
+                    async with pool.post(
+                            job["url"], data=bodies[i % len(bodies)],
+                            headers=headers) as resp:
+                        text = await resp.text()
+                    seconds[i] = time.perf_counter() - t0
+                    statuses[i] = resp.status
+                    if i < keep:
+                        texts[i] = text
+
+            t0 = time.perf_counter()
+            await asyncio.gather(
+                *(client() for _ in range(job["concurrency"])))
+            return time.perf_counter() - t0
+
+    wall = asyncio.run(run())
+    Path(job["out"]).write_text(json.dumps({
+        "wall_s": wall, "statuses": statuses, "seconds": seconds,
+        "texts": texts}))
+    print("DONE", flush=True)
+
+
+def drive(work: Path, base: str, bodies, concurrency: int, total: int,
+          keep: int, during=contextlib.nullcontext) -> dict:
+    """Run the load client (:func:`drive_main`) and return what it wrote;
+    its request loop runs inside ``during()``."""
+    work.mkdir(parents=True, exist_ok=True)
+    job, out = work / "job.json", work / "out.json"
+    job.write_text(json.dumps({
+        "base": base, "url": base + "/search/json", "bodies": bodies,
+        "concurrency": concurrency, "total": total, "keep": keep,
+        "out": str(out)}))
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--drive", str(job)],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    try:
+        if proc.stdout.readline().strip() != "READY":
+            fail("the load client did not start")
+        with during():
+            proc.stdin.write("GO\n")
+            proc.stdin.flush()
+            done = proc.stdout.readline().strip()
+        if done != "DONE" or proc.wait(timeout=60) != 0:
+            fail(f"the load client ended with {done!r}, code {proc.poll()}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return json.loads(out.read_text())
+
+
+def check_responses(res: dict, expected, label: str) -> None:
+    """Every request answered 200, and every kept body's hits equal
+    ``expected`` of its query (ids, order and float32 scores)."""
+    bad = [s for s in res["statuses"] if s != 200]
+    if bad:
+        fail(f"{label}: {len(bad)} of {len(res['statuses'])} responses were "
+             f"not 200 (first {bad[0]})")
+    n_ok = sum(
+        served_hits(text) == [(d, np.float32(s))
+                              for d, s in expected[i % len(expected)]]
+        for i, text in enumerate(res["texts"]))
+    if n_ok != len(res["texts"]):
+        fail(f"{label}: only {n_ok}/{len(res['texts'])} responses equal the "
+             f"expected hits")
+
+
+def phase_serve_entry(tag, work: Path, written: dict, device_args=(),
+                      clients: int = SERVE_CLIENTS) -> None:
+    """Phase 7a: ``python3 -m fugu_tpu_torch serve`` as a process of its
+    own on the write path's data directory (see the module docstring).
+    ``device_args`` is empty on the card: the server takes its default
+    device."""
+    ns, queries, expected = (written[k] for k in
+                             ("namespace", "queries", "expected"))
+    work.mkdir(parents=True, exist_ok=True)
+    config = work / "server_config.json"
+    config.write_text(json.dumps({
+        "data_path": str(written["data_path"]), "default_namespace": ns,
+        "namespaces": [{"name": ns}], "compaction": "off"}))
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("FUGU_")}
+    env["PYTHONPATH"] = str(REPO)
+    entry = [sys.executable, "-m", "fugu_tpu_torch"]
+    server_log = work / "server.log"
+    t0 = time.perf_counter()
+    with open(server_log, "w") as log_file:
+        proc = subprocess.Popen(
+            entry + ["serve", "--port", str(port), "--config", str(config),
+                     *device_args],
+            cwd=str(work), env=env, stdout=log_file, stderr=log_file)
+    try:
+        while True:
+            try:
+                status, text = http("GET", base + "/health", timeout=5)
+                if status == 200:
+                    break
+            except (urllib.error.URLError, OSError):
+                pass
+            if proc.poll() is not None:
+                fail(f"the server exited with {proc.returncode} before it "
+                     f"answered:\n{server_log.read_text()[-3000:]}")
+            if time.perf_counter() - t0 > 300:
+                fail("the server did not answer /health in 300 s")
+            time.sleep(0.1)
+        t_start = time.perf_counter() - t0
+        log(f"server start-up {tag}: {t_start:.2f} s from the command to "
+            f"the first /health (import, open the namespace's "
+            f"{written['data_path'].name} directory, load the kernels, bind)")
+        if "CUDA kernels loaded" not in server_log.read_text() and (
+                not device_args):
+            fail("the server bound its socket without loading the kernels")
+        bodies = [search_body(q, f, ns) for q, f in queries]
+        res = drive(work / "drive", base, bodies, clients, len(bodies),
+                    len(bodies))
+        check_responses(res, expected, "served write-path namespace")
+        m = scrape(base)
+        batches = int(m.get("fugu_search_engine_seconds_count", 0))
+        resident = int(m.get("fugu_device_resident_bytes", 0))
+        if not 0 < batches < len(bodies):
+            fail(f"{batches} search_many calls for {len(bodies)} requests: "
+                 f"the batcher did not coalesce")
+        if resident <= 0:
+            fail("the server reports no resident device bytes")
+        # the CLI, a process of its own, against the same HTTP call
+        query = queries[0][0]
+        status, text = http("POST", f"{base}/search/{ns}", {"query": query})
+        cli = subprocess.run(
+            entry + ["--server", base, "namespace", "search", ns, query],
+            cwd=str(work), env=env, capture_output=True, text=True,
+            timeout=120)
+        if status != 200 or cli.returncode != 0:
+            fail(f"CLI search: HTTP {status}, CLI exit {cli.returncode}: "
+                 f"{cli.stderr[-2000:]}")
+        if served_hits(cli.stdout) != served_hits(text) or not (
+                served_hits(text)):
+            fail("the CLI's hits differ from the HTTP call's")
+        lat = sorted(res["seconds"])
+        log(f"served {tag}: {len(bodies)}/{len(bodies)} responses from "
+            f"{clients} clients equal the expected hits (ids, order, "
+            f"scores) in {res['wall_s']:.2f} s with the pack uploads "
+            f"(p50 {lat[len(lat) // 2] * 1e3:.1f} ms); {batches} "
+            f"search_many calls, {len(bodies) / batches:.1f} queries a "
+            f"batch; resident {resident} bytes; the CLI printed the HTTP "
+            f"call's {len(served_hits(text))} hits")
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                fail("the server did not stop within 120 s of SIGTERM")
+    if proc.returncode != 0:
+        fail(f"the server exited with {proc.returncode} on SIGTERM:\n"
+             f"{server_log.read_text()[-3000:]}")
+    if "shutting down (graceful)" not in server_log.read_text():
+        fail("the server did not shut down gracefully")
+    log(f"server stop {tag}: SIGTERM, exit code 0")
+
+
+class LiveServer:
+    """The port's app over ``db`` on a thread with its own event loop."""
+
+    def __init__(self, db):
+        import asyncio
+        import threading
+
+        self.db = db
+        self.port = free_port()
+        self.base = f"http://127.0.0.1:{self.port}"
+        self._loop = asyncio.new_event_loop()
+        self._up = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        if not self._up.wait(60):
+            fail("the in-process server did not start")
+
+    def _run(self):
+        import asyncio
+
+        from aiohttp import web
+
+        from fugu_tpu_torch.server import create_app
+
+        asyncio.set_event_loop(self._loop)
+
+        async def boot():
+            self._runner = web.AppRunner(create_app(self.db))
+            await self._runner.setup()
+            await web.TCPSite(self._runner, "127.0.0.1", self.port).start()
+            self._up.set()
+
+        self._loop.run_until_complete(boot())
+        self._loop.run_forever()
+
+    def stop(self):
+        import asyncio
+
+        asyncio.run_coroutine_threadsafe(
+            self._runner.cleanup(), self._loop).result(60)
+        self._loop.call_soon_threadsafe(self._loop.stop)
+        self._thread.join(60)
+
+
+def phase_serve_load(device, tag, work: Path, corpus_dir: Path, card: str,
+                     levels=LOAD_LEVELS, n_requests: int = LOAD_REQUESTS,
+                     n_profiled: int = LOAD_PROFILED,
+                     n_queries: int = 256) -> None:
+    """Phase 7b: the corpus segment committed in ``corpus_dir`` mounted
+    as a namespace's docs index and served in process under closed-loop
+    load (see the module docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from fugu_tpu_torch.config import ServerConfig
+    from fugu_tpu_torch.engine.manager import DatasetManager
+    from fugu_tpu_torch.ops import batch_scorer as ba
+    from fugu_tpu_torch.ops import block_scorer as bs
+    from mix_timing import busy_ms
+
+    ns = "load"
+    docs_dir = work / "data" / ns / "docs"
+    docs_dir.mkdir(parents=True)
+    # the segment's files under another name, and its generation-1 manifest
+    for f in list(corpus_dir.glob("seg-*")) + [corpus_dir / "meta.json"]:
+        os.link(f, docs_dir / f.name)
+    cfg = ServerConfig.with_defaults(str(work / "data"), ns)
+    cfg.compaction = "off"
+    t0 = time.perf_counter()
+    mgr = DatasetManager(cfg, device=device)
+    ds = mgr.get_dataset(ns)
+    docs = ds.docs()
+    seg = docs.segments[0]
+    t_open = time.perf_counter() - t0
+    queries = make_query_strings(seg, ns, n_queries, seed_offset=5,
+                                 facet_fmt="/source/{}")
+    t0 = time.perf_counter()
+    direct = ds.search_many(queries, 0, WRITE_PAGE)
+    sync(device)
+    t_cold = time.perf_counter() - t0
+    check_search_many(ds, queries, direct, "served namespace, in process", tag)
+    if 2 * sum(bool(res) for res in direct) < n_queries:
+        fail("served namespace: most of the query strings have no hits")
+    expected = [[(r.id, r.score) for r in res] for res in direct]
+    log(f"served namespace {tag}: {seg.doc_count} docs mounted and opened "
+        f"in {t_open:.1f} s; cold search_many of {n_queries} query strings "
+        f"{t_cold:.2f} s")
+    bodies = [search_body(q, f, ns) for q, f in queries]
+    server = LiveServer(mgr)
+    cuda = device.type == "cuda"
+    try:
+        for clients in levels:
+            level = work / f"drive{clients}"
+            drive(level, server.base, bodies, clients, n_requests, 0)
+            before = scrape(server.base)
+            bs.launches = 0
+            ba.launches = 0
+            docs.routes.clear()
+            res = drive(level, server.base, bodies, clients, n_requests,
+                        n_requests)
+            after = scrape(server.base)
+            launches = {"block_scorer": bs.launches, "phase_a": ba.launches}
+            routes = dict(docs.routes)
+            check_responses(res, expected, f"served load, {clients} clients")
+
+            def delta(name):
+                return after.get(name, 0.0) - before.get(name, 0.0)
+
+            stage_ms = {}
+            for stage in LOAD_STAGES:
+                n = delta(f"{stage}_count")
+                stage_ms[stage] = delta(f"{stage}_sum") / n * 1e3 if n else None
+            batches = int(delta("fugu_search_engine_seconds_count"))
+            line = {
+                "phase": "served load", "card": card, "docs": seg.doc_count,
+                "clients": clients, "requests": n_requests,
+                "per_page": WRITE_PAGE, "failed": 0,
+                "qps": n_requests / res["wall_s"], "wall_s": res["wall_s"],
+                "p50_ms": float(np.percentile(res["seconds"], 50)) * 1e3,
+                "p99_ms": float(np.percentile(res["seconds"], 99)) * 1e3,
+                "batches": batches,
+                "mean_batch": n_requests / batches if batches else None,
+                "engine_share_of_wall": (
+                    delta("fugu_search_engine_seconds_sum") / res["wall_s"]),
+                "stage_mean_ms": stage_ms, "launches": launches,
+                "routes": routes,
+            }
+            if cuda:
+                # the device's idle share, from one more pass at this
+                # level under the profiler (kept out of the timed pass)
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    drive(level, server.base, bodies, clients, n_profiled, 0,
+                          during=lambda: record_function("served_level"))
+                    torch.cuda.synchronize()
+                raw = level / "trace.json"
+                prof.export_chrome_trace(str(raw))
+                wall, busy = busy_ms(json.loads(raw.read_text()),
+                                     "served_level")
+                raw.unlink()
+                line.update(profiled_requests=n_profiled,
+                            profiled_wall_ms=wall, device_busy_ms=busy,
+                            device_idle_share=1.0 - busy / wall)
+                if min(launches.values()) <= 0:
+                    fail(f"served load, {clients} clients: launches "
+                         f"{launches}")
+            log(json.dumps(line))
+            if not batches or n_requests / batches <= 1:
+                fail(f"served load, {clients} clients: {batches} batches for "
+                     f"{n_requests} requests")
+    finally:
+        server.stop()
         mgr.close()
 
 
@@ -1122,9 +1586,7 @@ def main() -> None:
     from fugu_tpu_torch import cuda_build, native
 
     t0 = time.perf_counter()
-    names = ("block_scorer", "phasea", "phrase")
-    with ThreadPoolExecutor(len(names)) as pool:
-        list(pool.map(cuda_build.load, names))  # raises if a build failed
+    cuda_build.load_all()  # raises if a build failed
     t_kernels = time.perf_counter() - t0
     if not native.available():
         fail("native tokenizer did not build")
@@ -1295,9 +1757,13 @@ def main() -> None:
         del ni, seg, stats
 
         # phase 6: the namespace write path
-        write_launches = phase_write_path(device, tag, work / "write")
+        written = phase_write_path(device, tag, work / "write")
         log(f"write path {tag}: kernel launches in its warm passes "
-            f"{write_launches}")
+            f"{written['launches']}")
+
+        # phase 7: the server and the CLI
+        phase_serve_entry(tag, work / "serve", written)
+        phase_serve_load(device, tag, work / "load", work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1311,4 +1777,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--drive"]:
+        drive_main(Path(sys.argv[2]))
+    else:
+        main()

@@ -16,6 +16,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -27,7 +29,12 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+#: every kernel source under ``csrc/``
+KERNELS = ("block_scorer", "phasea", "phrase")
+
 _libs: Dict[str, ctypes.CDLL] = {}
+#: first loads from several threads build and load each library once
+_load_lock = threading.Lock()
 #: nvcc/ptxas output of each build in this process (registers, spills)
 build_logs: Dict[str, str] = {}
 
@@ -70,9 +77,21 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
     lib = _libs.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        _libs[name] = lib
+        with _load_lock:
+            lib = _libs.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(build(name)))
+                _libs[name] = lib
     return lib
+
+
+def load_all() -> None:
+    """Build every kernel of :data:`KERNELS`, one ``nvcc`` each and all
+    at once, and load them; raises if any does not build."""
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(build, KERNELS))
+    for name in KERNELS:
+        load(name)
 
 
 def check(err: int, what: str) -> None:

@@ -146,6 +146,8 @@ class NamedIndex:
         #: plans answered per engine ("phase_a", "block_scorer", "host",
         #: "phrase_stream", "host_only") since the index was opened
         self.routes: Dict[str, int] = {}
+        #: searches run on several threads at once (the server's executor)
+        self._routes_lock = threading.Lock()
         #: bumped on every spill(); cold-guarded readers compare it
         #: across their walk so a spill+restore pair completing entirely
         #: inside the walk (has_cold back to False) still triggers a
@@ -215,6 +217,11 @@ class NamedIndex:
         for f in self.schema.date_fields:
             info[f] = "DATE | INDEXED | STORED"
         return info
+
+    def _count_routes(self, counts: Dict[str, int]) -> None:
+        with self._routes_lock:
+            for name, n in counts.items():
+                self.routes[name] = self.routes.get(name, 0) + n
 
     def searcher_segments(self) -> List[Segment]:
         """A consistent segment snapshot — pass it back to
@@ -319,11 +326,12 @@ class NamedIndex:
                 host_thread = threading.Thread(target=_host_work)
                 host_thread.start()
             res_map = {}
+            counts: Dict[str, int] = {}
             try:
                 if device_idx:
                     batch_res = device_engine(
                         seg, [plans[i] for i in device_idx], stats, limit,
-                        self.device, self.routes,
+                        self.device, counts,
                     )
                     res_map = dict(zip(device_idx, batch_res))
                 if stream_handle is not None:
@@ -337,13 +345,9 @@ class NamedIndex:
             finally:
                 if host_thread is not None:
                     host_thread.join()
-            n_stream = len(host_only_idx) - len(phrase_host_idx)
-            self.routes["phrase_stream"] = (
-                self.routes.get("phrase_stream", 0) + n_stream
-            )
-            self.routes["host_only"] = (
-                self.routes.get("host_only", 0) + len(phrase_host_idx)
-            )
+            counts["phrase_stream"] = len(host_only_idx) - len(phrase_host_idx)
+            counts["host_only"] = len(phrase_host_idx)
+            self._count_routes(counts)
             for i in runnable:
                 res = res_map.get(i)
                 if res is None:

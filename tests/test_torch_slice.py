@@ -3,6 +3,7 @@ by fugu_tpu_torch's NamedIndex, must answer search_topk_batch exactly as
 the reference NamedIndex and the oracle do.  A fresh interpreter that
 runs the slice must import neither JAX, nor fugu_tpu, nor Triton."""
 
+import json
 import os
 import subprocess
 import sys
@@ -206,7 +207,7 @@ def test_slice_imports_no_jax_fugu_tpu_or_triton(namespace, tmp_path):
     the smoke's write-path phase at a small size (DatasetManager ingest,
     overwrite, delete, compaction with the device merge, spill and
     restore, search_many against the oracle) without importing JAX,
-    fugu_tpu, Triton or PyYAML; the conftest of this suite imports JAX,
+    fugu_tpu, Triton, PyYAML or aiohttp; the conftest of this suite imports JAX,
     hence the subprocess."""
     script = textwrap.dedent(f"""
         import sys
@@ -251,7 +252,7 @@ def test_slice_imports_no_jax_fugu_tpu_or_triton(namespace, tmp_path):
         assert device_merge.launches >= 4
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "fugu_tpu",
-                                            "triton", "yaml"))
+                                            "triton", "yaml", "aiohttp"))
         print("LOADED", bad)
         assert not bad, bad
     """)
@@ -262,3 +263,81 @@ def test_slice_imports_no_jax_fugu_tpu_or_triton(namespace, tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LOADED []" in proc.stdout
+
+
+def test_server_imports_no_jax_fugu_tpu_or_triton(tmp_path):
+    """A fresh interpreter imports ``fugu_tpu_torch.server``, serves an
+    ingest and a search through the app on the CPU, then runs the
+    smoke's served phases at a small size, and has loaded neither JAX,
+    fugu_tpu nor Triton (aiohttp it has: the server is the one module
+    that imports it)."""
+    script = textwrap.dedent(f"""
+        import asyncio
+        import sys
+        from aiohttp.test_utils import TestClient, TestServer
+        from fugu_tpu_torch.config import ServerConfig
+        from fugu_tpu_torch.engine.manager import DatasetManager
+        from fugu_tpu_torch.server import create_app
+
+        db = DatasetManager(
+            ServerConfig.with_defaults({str(tmp_path)!r}, "main"),
+            device="cpu")
+
+        async def main():
+            async with TestClient(TestServer(create_app(db))) as client:
+                docs = [{{"id": f"d{{i}}", "text": f"served doc {{i}}",
+                         "namespace": "main"}} for i in range(4)]
+                r = await client.post("/ingest", json={{"data": docs}})
+                assert r.status == 200, await r.text()
+                r = await client.post("/search/json",
+                                      json={{"query": "served"}})
+                out = await r.json()
+                assert r.status == 200 and out["total"] == 4, out
+
+        asyncio.run(main())
+        db.close()
+        assert "aiohttp" in sys.modules
+
+        # the smoke's served phases at a small size: the entry point as a
+        # subprocess on a write path's directory, then a mounted corpus
+        # segment served in process under two levels of closed-loop load
+        from pathlib import Path
+        import torch
+        import chip_smoke
+        from fugu_tpu_torch.index.manifest import Manifest, save_segment
+
+        work = Path({str(tmp_path)!r}) / "smoke"
+        work.mkdir()
+        seg = chip_smoke.build_corpus(20000, 7, 3000)
+        seg.segment_id = "corpus"
+        save_segment(seg, work)
+        Manifest(work).commit([seg])
+        del seg
+        cpu = torch.device("cpu")
+        written = chip_smoke.phase_write_path(
+            cpu, "[cpu]", work / "write", n_records=2048, n_batches=8,
+            n_churn=32, vocab_size=2000, n_queries=48)
+        chip_smoke.phase_serve_entry(
+            "[cpu]", work / "serve", written,
+            device_args=("--device", "cpu"), clients=8)
+        chip_smoke.phase_serve_load(
+            cpu, "[cpu]", work / "load", work, "cpu", levels=(4, 16),
+            n_requests=128, n_profiled=32, n_queries=32)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "fugu_tpu",
+                                            "triton"))
+        print("LOADED", bad)
+        assert not bad, bad
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=str(tmp_path), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout
+    assert "server stop [cpu]: SIGTERM, exit code 0" in proc.stdout
+    levels = [json.loads(line) for line in proc.stdout.splitlines()
+              if line.startswith('{"phase": "served load"')]
+    assert [lv["clients"] for lv in levels] == [4, 16]
+    assert all(lv["failed"] == 0 and lv["mean_batch"] > 1 for lv in levels)

@@ -33,6 +33,7 @@ import fugu_tpu.ops.oracle
 import fugu_tpu.query
 import fugu_tpu.records
 import fugu_tpu.storage.spill
+import fugu_tpu.telemetry
 import fugu_tpu_torch.config
 import fugu_tpu_torch.engine.dataset
 import fugu_tpu_torch.engine.manager
@@ -45,6 +46,7 @@ import fugu_tpu_torch.ops.oracle
 import fugu_tpu_torch.query
 import fugu_tpu_torch.records
 import fugu_tpu_torch.storage.spill
+import fugu_tpu_torch.telemetry
 from fugu_tpu_torch.index.schema import IndexType
 from fugu_tpu_torch.ops import device_merge, oracle, residency
 from test_storage import _FakeS3Client
@@ -70,6 +72,7 @@ def _package(root, name, kw, mgr_kw):
         spill=root.storage.spill, config=root.config,
         dataset=root.engine.dataset, manager=root.engine.manager,
         oracle=root.ops.oracle, query=root.query,
+        named_index_module=root.engine.named_index, telemetry=root.telemetry,
     )
 
 
