@@ -36,7 +36,27 @@ no CUDA device exists or the checkout is missing.  Phases:
    operations at 67 TFLOP/s f32, whichever is longer), replaying the
    calls the main path made; each block-scorer launch's time and shape;
    the block scorer once more on a row over every block of the 1M
-   segment;
+   segment; then the small-segment engine (``ops/scoring.py``, torch
+   ops on the card).  Its routing ladder first: on segments of 8,192,
+   32,768, 131,072 and 262,144 docs cut from one build of the
+   generator's texts, and on the 1M segment, the small-segment engine
+   and the hybrid engine answer the same 232 plans (the write path's
+   query classes without its phrases) at limit 10, warm, in turns
+   (small, hybrid, hybrid, small), each turn the median of 3 passes,
+   with equal results; one JSON line a rung: ms a pass for each engine,
+   the dispatches, the device kernels a dispatch, the device's idle
+   share (``torch.profiler``) and ``torch.cuda.max_memory_allocated``;
+   then the same rungs with a tenth of each segment's docs tombstoned.
+   Then, on the tombstoned 32,768- and 262,144-doc segments, 256 plans
+   (SHOULD of one to six terms, MUST, MUST_NOT, facet filters,
+   multi-field groups) through ``device_search_batch`` at limits 10, 16,
+   100, 256, 300 and 4,096, each result bit-identical to
+   ``oracle.search``, a limit of 4,097 declined, each dispatch run twice
+   with the same bits before the rescore, the count of candidate scores
+   whose bits differ from the exact ones, and ``segment_topk_batch`` on
+   the card against the same calls on CPU tensors (scores within 2 ulp,
+   docs identical at untied scores); and the 32,768-doc segment once
+   more with six tenths tombstoned, where idf turns negative;
 6. the write path: a ``DatasetManager`` namespace on the card ingests
    262,144 of bench.py's ingest records in 8 batches through
    ``Dataset.ingest``, overwrites 2,048 ids and deletes 2,048 more, and
@@ -46,10 +66,15 @@ no CUDA device exists or the checkout is missing.  Phases:
    fresh upload bit for bit), and the namespace spills to a ``file://``
    prefix and restores.  The batch runs before compaction, after it and
    after the restore, and every result (id and score) must equal the
-   oracle over the same snapshot; phase A and the block scorer must have
-   run.  It prints ingest records/s, the segments before and after
+   oracle over the same snapshot; every engine that the size constant
+   selects for one of the segments must have answered plans (by
+   ``NamedIndex.routes``; the hybrid engine's kernels must have
+   launched).  It prints ingest records/s, the segments before and after
    compaction, the pass's seconds, the device merge against the host
-   upload of the merged pack, and the batch's warm QPS;
+   upload of the merged pack, the batch's warm QPS with its plans per
+   route, and one more warm pass over the fresh segments split per
+   segment into staging, dispatches, ``rescore_hits`` and the host
+   chain (one JSON line);
 7. the server and the CLI, through their entry points.  (a) ``python3
    -m fugu_tpu_torch serve --port P --config FILE`` starts as a process
    of its own on the write path's data directory, with no device
@@ -57,8 +82,9 @@ no CUDA device exists or the checkout is missing.  Phases:
    before it answers /health.  The write path's 256 query strings go to
    ``/search/json`` from 64 concurrent clients (a client process,
    ``chip_smoke.py --drive``): every response must be 200 and equal the
-   answers phase 6 held to the oracle, in ids, order and scores;
-   ``/metrics`` must show resident device bytes and fewer
+   answers phase 6 held to the oracle, in ids, order and scores; one
+   page-2 request at ``per_page`` 100 (limit 200) must equal phase 6's
+   oracle-checked page; ``/metrics`` must show resident device bytes and fewer
    ``search_many`` calls than requests (the micro-batcher coalesced);
    ``python3 -m fugu_tpu_torch namespace search`` must print the hits of
    the same HTTP call; SIGTERM must end the server with exit code 0.  It
@@ -138,6 +164,8 @@ WRITE_PAGE = 10
 #: namespace; then clients per level, requests per timed level (after an
 #: untimed pass of as many) and per profiled pass on the 1M namespace
 SERVE_CLIENTS = 64
+#: the served page-2 request's per_page (its limit is twice that)
+SERVE_PAGE_TWO = 100
 LOAD_LEVELS = (64, 256)
 LOAD_REQUESTS = 2_048
 LOAD_PROFILED = 512
@@ -147,6 +175,17 @@ LOAD_STAGES = (
     "fugu_search_engine_seconds", "fugu_search_serialize_seconds",
     "fugu_search_seconds",
 )
+#: the small-segment engine's phase: the sizes of its check segments, the
+#: limits it is held to the oracle at (per_page 10 and 100, pages 1 to 3,
+#: the rungs of K_BUCKETS) and the sizes of the routing ladder's segments
+SMALL_CHECK_DOCS = (32_768, 262_144)
+SMALL_LIMITS = (10, 16, 100, 256, 300, 4096)
+LADDER_DOCS = (8_192, 32_768, 131_072, 262_144)
+#: segment_topk_batch on the card against the same call on CPU tensors:
+#: scores within this many units of the last place (the card may fuse
+#: c1 + c2 * norm into one multiply-add; every other step is the same
+#: IEEE operation in the same order)
+SMALL_ULPS = 2
 #: the check segment's doc that spans several 2048-row stream chunks
 LONG_PAIR = ("t00005", "t00007")
 LONG_DOC = " ".join([" ".join(LONG_PAIR)] * 1500)
@@ -188,20 +227,28 @@ def zipf_texts(n_docs: int, rng, vocab_size: int):
     return [" ".join(words[starts[i]:starts[i + 1]]) for i in range(n_docs)]
 
 
-def build_corpus(n_docs: int, seed: int, vocab_size: int, extra=()):
-    """bench.py's synthetic Zipfian corpus (bench.py:138-178), built with
-    the port's SegmentBuilder: :func:`zipf_texts`, one of 20 facet
-    sources per doc; the texts of ``extra`` follow as more docs."""
+def corpus_texts(n_docs: int, seed: int, vocab_size: int):
+    """(texts, facet sources) of bench.py's synthetic Zipfian corpus
+    (bench.py:138-178): :func:`zipf_texts`, one of 20 sources per doc."""
+    rng = np.random.default_rng(seed)
+    texts = zipf_texts(n_docs, rng, vocab_size)
+    return texts, rng.integers(0, 20, n_docs)
+
+
+def segment_of(texts, srcs, extra=(), name_words: int = 0):
+    """A segment of ``texts`` built with the port's SegmentBuilder; the
+    texts of ``extra`` follow as more docs.  With ``name_words`` each
+    doc's first words are also its ``name`` field."""
     from fugu_tpu_torch.index.schema import DOCS_SCHEMA
     from fugu_tpu_torch.index.segment import SegmentBuilder
 
-    rng = np.random.default_rng(seed)
     b = SegmentBuilder(DOCS_SCHEMA)
-    texts = zipf_texts(n_docs, rng, vocab_size)
-    srcs = rng.integers(0, 20, n_docs)
     for i, text in enumerate(texts):
+        fields = {"text": [text]}
+        if name_words:
+            fields["name"] = [" ".join(text.split(" ", name_words)[:name_words])]
         b.add_document(
-            {"text": [text]},
+            fields,
             facets=[f"/source/{int(srcs[i])}"],
             stored={"id": f"d{i}"},
         )
@@ -209,6 +256,12 @@ def build_corpus(n_docs: int, seed: int, vocab_size: int, extra=()):
         b.add_document({"text": [text]}, facets=["/source/0"],
                        stored={"id": f"x{i}"})
     return b.build()
+
+
+def build_corpus(n_docs: int, seed: int, vocab_size: int, extra=()):
+    """bench.py's synthetic Zipfian corpus as one segment
+    (:func:`corpus_texts`, :func:`segment_of`)."""
+    return segment_of(*corpus_texts(n_docs, seed, vocab_size), extra=extra)
 
 
 def df_picker(seg, rng):
@@ -888,6 +941,451 @@ def phase_phrase_batch(ni, seg, stats, tag):
     return calls, launches
 
 
+# -- the small-segment engine ---------------------------------------------------
+
+
+def class_plan(cls: str, pick, rng, max_should: int):
+    """One plan of a class: ``should`` (one to ``max_should`` df-weighted
+    terms), ``must`` (two or three), ``mustnot`` (SHOULD terms and a
+    MUST_NOT), ``facet`` (SHOULD terms under a MUST facet filter) or
+    ``multifield`` (groups of one term over the text and name fields)."""
+    from fugu_tpu_torch.query import Occur, QueryGroup, QueryPlan, TermClause
+
+    def text(occur, words):
+        return [QueryGroup(occur, (TermClause("text", w),)) for w in words]
+
+    if cls == "should":
+        groups = text(Occur.SHOULD, pick(int(rng.integers(1, max_should + 1))))
+    elif cls == "must":
+        groups = text(Occur.MUST, pick(int(rng.integers(2, 4))))
+    elif cls == "mustnot":
+        *keep, drop = pick(int(rng.integers(2, 4)))
+        groups = text(Occur.SHOULD, keep) + text(Occur.MUST_NOT, [drop])
+    elif cls == "facet":
+        groups = text(Occur.SHOULD, pick(int(rng.integers(1, 4))))
+        groups.append(QueryGroup(Occur.MUST, (TermClause(
+            "", f"/source/{int(rng.integers(0, 20))}", is_facet=True),)))
+    else:
+        groups = [
+            QueryGroup(Occur.SHOULD, (TermClause("text", w),
+                                      TermClause("name", w)))
+            for w in pick(int(rng.integers(1, 4)))
+        ]
+    return QueryPlan(groups=tuple(groups))
+
+
+def class_plans(seg, counts: dict, n_plans: int, seed_offset: int,
+                max_should: int):
+    """``n_plans`` plans over ``seg`` in the proportions of ``counts``."""
+    rng = np.random.default_rng(SEED + seed_offset)
+    pick = df_picker(seg, rng)
+    scale = n_plans / sum(counts.values())
+    return [
+        class_plan(cls, pick, rng, max_should)
+        for cls, n in counts.items() for _ in range(max(int(n * scale), 1))
+    ][:n_plans]
+
+
+def small_engine_plans(seg, n_plans: int = 256):
+    """The small-segment engine's check batch: SHOULD of one to six
+    terms, MUST, MUST_NOT, facet filters and multi-field groups."""
+    return class_plans(seg, {"should": 112, "must": 40, "mustnot": 32,
+                             "facet": 40, "multifield": 32}, n_plans, 6, 6)
+
+
+def ladder_plans(seg, n_plans: int = 232):
+    """The plan classes of :func:`make_query_strings` without its
+    phrases, as plans over one segment."""
+    return class_plans(seg, {"should": 128, "must": 40, "mustnot": 32,
+                             "facet": 32}, n_plans, 7, 4)
+
+
+@contextlib.contextmanager
+def size_constant(value: int):
+    """Route with ``SMALL_SEGMENT_MAX_DOCS`` at ``value`` inside."""
+    from fugu_tpu_torch.engine import named_index
+
+    old = named_index.SMALL_SEGMENT_MAX_DOCS
+    named_index.SMALL_SEGMENT_MAX_DOCS = value
+    try:
+        yield
+    finally:
+        named_index.SMALL_SEGMENT_MAX_DOCS = old
+
+
+@contextlib.contextmanager
+def captured(module, name: str):
+    """Every call of ``module.name`` inside as ``(args, kwargs, result)``."""
+    orig = getattr(module, name)
+    calls = []
+
+    def rec(*args, **kw):
+        out = orig(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Distance in units of the last place between finite float32
+    arrays (their bit patterns on one monotone integer scale)."""
+    def scale(x):
+        bits = x.astype(np.float32).view(np.int32).astype(np.int64)
+        return np.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+
+    return np.abs(scale(a) - scale(b))
+
+
+def profiled_pass(fn, work: Path):
+    """(wall ms, device busy ms, device kernels) of one ``fn()`` under
+    ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mix_timing import busy_ms
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("engine_pass"):
+            fn()
+            torch.cuda.synchronize()
+    raw = work / "engine_trace.json"
+    prof.export_chrome_trace(str(raw))
+    trace = json.loads(raw.read_text())
+    raw.unlink()
+    wall, busy = busy_ms(trace, "engine_pass")
+    win = next(e for e in trace["traceEvents"]
+               if e.get("name") == "engine_pass"
+               and e.get("cat") == "user_annotation")
+    kernels = sum(
+        e.get("cat") == "kernel" and win["ts"] <= e["ts"] < win["ts"] + win["dur"]
+        for e in trace["traceEvents"])
+    return wall, busy, kernels
+
+
+def check_small_engine(seg, stats, plans, limits, device, tag, label):
+    """``device_search_batch`` on ``plans`` at each limit: every result
+    bit-identical to ``oracle.search``, and a second run of each
+    dispatch with the same bits before the rescore.  At the third limit
+    it counts the candidate scores that differ in bits from the exact
+    ones, and returns that limit's ``segment_topk_batch`` calls."""
+    from fugu_tpu_torch.ops import oracle, scoring
+    from fugu_tpu_torch.ops.rescore import exact_scores
+
+    top = max(limits)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        exps = list(pool.map(
+            lambda p: hits_key((h.score, h.doc)
+                               for h in oracle.search([seg], p, top, stats)),
+            plans))
+    t_oracle = time.perf_counter() - t0
+    kept, differ, total = None, 0, 0
+    times = {}
+    for limit in limits:
+        t0 = time.perf_counter()
+        with captured(scoring, "_dispatch") as first, \
+                captured(scoring, "segment_topk_batch") as calls:
+            got = scoring.device_search_batch(seg, plans, stats, limit, device)
+        sync(device)
+        times[limit] = round(time.perf_counter() - t0, 4)
+        n_ok = sum(g is not None and hits_key(g) == e[:limit]
+                   for g, e in zip(got, exps))
+        if n_ok != len(plans):
+            fail(f"small-segment engine, {label}, limit {limit}: only "
+                 f"{n_ok}/{len(plans)} results equal the oracle")
+        with captured(scoring, "_dispatch") as second:
+            scoring.device_candidates(seg, plans, stats, limit, device)
+        if len(first) != len(second) or not first:
+            fail(f"small-segment engine, {label}: {len(first)} and "
+                 f"{len(second)} dispatches on the same plans")
+        for (_a, _k, (s1, d1)), (_a2, _k2, (s2, d2)) in zip(first, second):
+            if not (np.array_equal(s1.view(np.int32), s2.view(np.int32))
+                    and np.array_equal(d1, d2)):
+                fail(f"small-segment engine, {label}, limit {limit}: two "
+                     f"runs of a dispatch differ in bits")
+        if limit == limits[2]:
+            kept = [(a, k) for a, k, _out in calls]
+            for (args, _k, (scores, docs)) in first:
+                for j, item in enumerate(args[1]):
+                    n = int(np.isfinite(scores[j]).sum())
+                    exact = exact_scores(seg, plans[item.index], stats,
+                                         docs[j, :n].astype(np.int64))
+                    differ += int((exact.view(np.int32)
+                                   != scores[j, :n].view(np.int32)).sum())
+                    total += n
+    log(f"small-segment engine {tag}: {label}: {len(plans)}/{len(plans)} "
+        f"results bit-identical to the oracle at each limit of {limits} "
+        f"(seconds a batch {times}; oracle {t_oracle:.1f} s), every "
+        f"dispatch run twice with the same bits; at limit {limits[2]}, "
+        f"{differ} of {total} candidate scores differ in bits from the "
+        f"exact ones before the rescore")
+    return kept
+
+
+def check_card_against_cpu(calls, tag, label, max_calls: int = 4):
+    """``segment_topk_batch`` on the card against the same function on
+    CPU tensors, for recorded calls: scores within ``SMALL_ULPS`` units
+    of the last place (the card may fuse ``c1 + c2 * norm`` into one
+    multiply-add), docs identical wherever the CPU's score is further
+    than that from both neighbours'."""
+    import torch
+
+    from fugu_tpu_torch.ops import scoring
+
+    worst = 0
+    for args, kw in calls[:max_calls]:
+        gs, gd = scoring.segment_topk_batch(*args, **kw)
+        cs, cd = scoring.segment_topk_batch(*(a.cpu() for a in args), **kw)
+        gs, gd = gs.cpu().numpy(), gd.cpu().numpy()
+        cs, cd = cs.numpy(), cd.numpy()
+        fin = np.isfinite(cs)
+        if not np.array_equal(fin, np.isfinite(gs)):
+            fail(f"small-segment engine, {label}: the card and the CPU "
+                 f"find different numbers of hits")
+        dist = ulps(gs[fin], cs[fin])
+        worst = max(worst, int(dist.max()) if dist.size else 0)
+        if worst > SMALL_ULPS:
+            fail(f"small-segment engine, {label}: card and CPU scores "
+                 f"{worst} ulp apart")
+        # a score is tied when a neighbour in its row (or the row's
+        # first doc left out) may lie within the tolerance
+        gap = np.full(cs.shape, np.inf)
+        with np.errstate(invalid="ignore"):  # -inf beside -inf past the hits
+            step = np.abs(np.diff(cs.astype(np.float64), axis=1))
+            gap[:, 1:] = np.fmin(gap[:, 1:], step)
+            gap[:, :-1] = np.fmin(gap[:, :-1], step)
+            gap[:, -1] = 0.0
+            clear = fin & (gap > 2 * SMALL_ULPS * np.spacing(np.abs(cs)))
+        if not np.array_equal(gd[clear], cd[clear]):
+            fail(f"small-segment engine, {label}: card and CPU docs differ "
+                 f"at untied scores")
+    torch.cuda.synchronize()
+    log(f"small-segment engine {tag}: {label}: segment_topk_batch on the "
+        f"card against the same calls on CPU tensors, "
+        f"{min(len(calls), max_calls)} dispatches: scores at most {worst} "
+        f"ulp apart (tolerance {SMALL_ULPS}), docs identical at every "
+        f"untied score")
+
+
+def ladder_rung(seg, device, tag, card, work: Path, tombstoned: float = 0.0):
+    """One rung of the routing ladder: the small-segment engine and the
+    hybrid engine on the same plans over ``seg`` at limit 10, warm, in
+    turns (small, hybrid, hybrid, small), each turn the median of 3
+    passes; equal results; one JSON line.  ``tombstoned`` is the share
+    of ``seg``'s docs that are dead, for the line."""
+    import torch
+
+    from fugu_tpu_torch.engine import named_index
+    from fugu_tpu_torch.ops import oracle, scoring
+
+    stats = oracle.IndexStats([seg])
+    plans = ladder_plans(seg)
+    cuda = device.type == "cuda"
+
+    def run(constant):
+        with size_constant(constant):
+            out = named_index.device_engine(seg, plans, stats, 10, device)
+        sync(device)
+        return out
+
+    engines = {"small": seg.doc_count, "hybrid": 0}
+    results, line = {}, {
+        "phase": "ladder", "card": card, "docs": seg.doc_count,
+        "tombstoned": tombstoned, "postings": seg.n_entries,
+        "plans": len(plans), "limit": 10,
+    }
+    for name, constant in engines.items():
+        t0 = time.perf_counter()
+        results[name] = run(constant)  # cold: pack uploads
+        line[f"{name}_cold_ms"] = (time.perf_counter() - t0) * 1e3
+        line[f"{name}_turn_ms"] = []
+        line[f"{name}_pass_ms"] = []
+    if any(r is None for r in results["small"]):
+        fail(f"ladder, {seg.doc_count} docs: the small-segment engine "
+             f"declined a plan")
+    if [hits_key(r) for r in results["small"]] != [
+            hits_key(r) for r in results["hybrid"]]:
+        fail(f"ladder, {seg.doc_count} docs: the two engines' results differ")
+    for name in ("small", "hybrid", "hybrid", "small"):
+        passes = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run(engines[name])
+            passes.append((time.perf_counter() - t0) * 1e3)
+        line[f"{name}_turn_ms"].append(sorted(passes)[1])
+        line[f"{name}_pass_ms"].extend(passes)
+    with captured(scoring, "segment_topk_batch") as calls:
+        run(engines["small"])
+    line["small_dispatches"] = len(calls)
+    # the least the card must do for the small engine's pass: each
+    # posting of each plan read once (doc and tf | fid, 8 bytes), a
+    # tombstone flag a posting or the segment's flags once a dispatch,
+    # the staged operands in and k (score, doc) pairs a row out; six
+    # operations a posting, as in scorer_cost
+    own = sum(int(a[4].sum()) for a, _kw, _out in calls)
+    nbytes = sum(
+        8 * int(a[4].sum()) + 4 * min(int(a[4].sum()), seg.doc_count)
+        + 4 * (6 * a[3].numel() + 3 * a[9].numel()) + 8 * out[0].numel()
+        for a, _kw, out in calls)
+    line.update(
+        small_postings_read=own, small_bound_bytes=nbytes,
+        small_bound_ms=max(nbytes / HBM_BYTES_S, 6 * own / F32_OPS_S) * 1e3,
+        small_bound_by=("bytes" if nbytes / HBM_BYTES_S
+                        >= 6 * own / F32_OPS_S else "operations"))
+    if cuda:
+        for name, constant in engines.items():
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            wall, busy, kernels = profiled_pass(lambda: run(constant), work)
+            line[f"{name}_device_kernels"] = kernels
+            line[f"{name}_device_idle_share"] = 1.0 - busy / wall
+            line[f"{name}_device_busy_ms"] = busy
+            line[f"{name}_max_memory_allocated"] = (
+                torch.cuda.max_memory_allocated())
+            line[f"{name}_memory_held_before"] = held
+        line["small_kernels_per_dispatch"] = (
+            line["small_device_kernels"] / line["small_dispatches"])
+    log(json.dumps(line))
+    return line
+
+
+def phase_small_engine(device, tag, card, work: Path, big=None,
+                       check_docs=SMALL_CHECK_DOCS, limits=SMALL_LIMITS,
+                       ladder_docs=LADDER_DOCS, vocab_size: int = VOCAB_SIZE,
+                       n_plans: int = 256):
+    """The small-segment engine (``ops/scoring.py``) on ``device``.
+    First the routing ladder, :func:`ladder_rung` on a segment of each
+    size of ``ladder_docs`` as the generator gives it and on ``big`` (the
+    main path's segment), then on the same segments with a tenth of
+    their docs tombstoned (a head term's idf turns nonpositive, and the
+    hybrid engine sends such plans to the host chain).  Then, on the
+    tombstoned segment of each size of ``check_docs`` (each doc's first
+    two words also its ``name``), :func:`check_small_engine` at
+    ``limits`` and a limit of 4,097 declined; on the first once more
+    with six tenths tombstoned, where most terms' idf is negative; on
+    the card, :func:`check_card_against_cpu`.  Returns the ladder's
+    lines."""
+    import dataclasses
+
+    from fugu_tpu_torch.ops import oracle, scoring
+    from fugu_tpu_torch.ops.staging import has_nonpositive_weight
+
+    t0 = time.perf_counter()
+    sizes = sorted(set(check_docs) | set(ladder_docs))
+    texts, srcs = corpus_texts(sizes[-1], SEED + 300, vocab_size)
+    segs = {n: segment_of(texts[:n], srcs[:n], name_words=2) for n in sizes}
+    del texts
+    log(f"small-segment engine {tag}: segments of {sizes} docs built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    lines = [ladder_rung(segs[n], device, tag, card, work)
+             for n in sorted(ladder_docs)]
+    if big is not None:
+        lines.append(ladder_rung(big, device, tag, card, work))
+
+    def tombstoned(seg, share):
+        """``seg``'s arrays as a new segment with ``share`` of its docs
+        dead and nothing cached on the device."""
+        dead = np.random.default_rng(SEED + 301).random(seg.doc_count) < share
+        return dataclasses.replace(seg, tombstones=dead, _device_pack=None)
+
+    segs = {n: tombstoned(seg, 0.1) for n, seg in segs.items()}
+    lines += [ladder_rung(segs[n], device, tag, card, work, tombstoned=0.1)
+              for n in sorted(ladder_docs)]
+    for n in check_docs:
+        seg = segs[n]
+        stats = oracle.IndexStats([seg])
+        plans = small_engine_plans(seg, n_plans)
+        label = f"{n} docs, a tenth tombstoned"
+        calls = check_small_engine(seg, stats, plans, limits, device, tag,
+                                   label)
+        if scoring.device_search_batch(
+                seg, plans, stats, 4097, device) != [None] * len(plans):
+            fail("small-segment engine: a limit of 4,097 was not declined")
+        if device.type == "cuda":
+            check_card_against_cpu(calls, tag, label)
+    # the negative-idf regime: df counts dead docs, doc_count live ones
+    seg = tombstoned(segs[check_docs[0]], 0.6)
+    stats = oracle.IndexStats([seg])
+    plans = small_engine_plans(seg, n_plans)
+    negative = sum(has_nonpositive_weight(p, stats) for p in plans)
+    if not negative:
+        fail("small-segment engine: no plan with a nonpositive weight")
+    check_small_engine(seg, stats, plans, limits[:3], device, tag,
+                       f"{seg.doc_count} docs, six tenths tombstoned, "
+                       f"{negative} plans with a nonpositive weight")
+    return lines
+
+
+class EngineSplit:
+    """Times one pass's parts per segment.  Inside, each
+    ``device_engine`` call is timed whole, and so are, by the segment
+    they are called with: staging (``stage_clauses`` of the
+    small-segment engine and of the block scorer), ``rescore_hits`` and
+    the host chain (``search_blockmax``, on whichever thread runs it);
+    the small-segment engine's dispatches (upload, device work and
+    download) count for the segment whose engine is running."""
+
+    def __init__(self):
+        self.by_segment = {}
+        self._current = None
+        self._undo = []
+
+    def entry(self, seg) -> dict:
+        from fugu_tpu_torch.engine import named_index
+
+        return self.by_segment.setdefault(id(seg), {
+            "docs": seg.doc_count, "engine": named_index._engine_name(seg)})
+
+    def _timed(self, module, name, key, by_argument=True):
+        orig = getattr(module, name)
+
+        def timed(*args, **kw):
+            cur = self.entry(args[0]) if by_argument else self._current
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kw)
+            finally:
+                cur[key] = cur.get(key, 0.0) + time.perf_counter() - t0
+
+        setattr(module, name, timed)
+        self._undo.append((module, name, orig))
+
+    def __enter__(self):
+        from fugu_tpu_torch.engine import named_index
+        from fugu_tpu_torch.ops import block_scorer, blockmax, scoring
+
+        orig = named_index.device_engine
+
+        def engine(seg, plans, stats, limit, device, routes=None):
+            cur = self._current = self.entry(seg)
+            cur["plans"], cur["routes"] = len(plans), routes
+            t0 = time.perf_counter()
+            try:
+                return orig(seg, plans, stats, limit, device, routes)
+            finally:
+                cur["engine_total_s"] = time.perf_counter() - t0
+
+        named_index.device_engine = engine
+        self._undo.append((named_index, "device_engine", orig))
+        self._timed(scoring, "stage_clauses", "staging_s")
+        self._timed(block_scorer, "stage_clauses", "staging_s")
+        self._timed(scoring, "_dispatch", "device_s", by_argument=False)
+        self._timed(scoring, "rescore_hits", "rescore_s")
+        self._timed(block_scorer, "rescore_hits", "rescore_s")
+        self._timed(blockmax, "search_blockmax", "host_chain_s")
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, orig in reversed(self._undo):
+            setattr(module, name, orig)
+
+
 def make_records(ids, seed: int, namespace: str, vocab_size=VOCAB_SIZE):
     """bench.py's ingest records (bench.py:107-121) for ``ids``:
     :func:`zipf_texts`, ``metadata.source`` one of 20.  The facet
@@ -981,20 +1479,43 @@ def check_search_many(ds, queries, got, label, tag):
              f"equal the oracle")
 
 
+def check_engines_ran(docs, routes: dict, launches: dict, device, label):
+    """Every engine that the size constant selects for one of ``docs``'s
+    segments answered plans: the small-segment engine by ``routes``, the
+    hybrid engine by ``routes`` and, on the card, by both kernels'
+    launches."""
+    from fugu_tpu_torch.engine import named_index
+
+    want = {named_index._engine_name(s) for s in docs.segments
+            if s.n_entries >= named_index.DEVICE_MIN_ENTRIES}
+    if "small_segment" in want and routes.get("small_segment", 0) <= 0:
+        fail(f"write path, {label}: no plan took the small-segment engine "
+             f"({routes})")
+    if "hybrid" in want:
+        if routes.get("phase_a", 0) + routes.get("block_scorer", 0) <= 0:
+            fail(f"write path, {label}: no plan took the hybrid engine "
+                 f"({routes})")
+        if device.type == "cuda" and min(launches.values()) <= 0:
+            fail(f"write path, {label}: the batch launched {launches}")
+    if not want:
+        fail(f"write path, {label}: no segment reaches the device")
+
+
 def phase_write_path(device, tag, work: Path, n_records: int = WRITE_RECORDS,
                      n_batches: int = WRITE_BATCHES, n_churn: int = WRITE_CHURN,
                      vocab_size: int = VOCAB_SIZE, n_queries: int = 256):
     """Phase 6: the namespace write path through ``DatasetManager`` on
     ``device`` (see the module docstring); returns the launches of phase
-    A and the block scorer in the warm passes of the query batch, the
-    namespace's name and data directory, its query strings and their
-    answers after the restore, [(id, score)] each, which were held to
-    the oracle."""
+    A and the block scorer and the plans per route in the warm passes of
+    the query batch, the namespace's name and data directory, its query
+    strings and their answers after the restore, [(id, score)] each,
+    which were held to the oracle, and the first query's page 2 at
+    ``SERVE_PAGE_TWO`` a page, held to the oracle too."""
     from fugu_tpu_torch.config import ServerConfig
     from fugu_tpu_torch.engine.manager import DatasetManager
     from fugu_tpu_torch.ops import batch_scorer as ba
     from fugu_tpu_torch.ops import block_scorer as bs
-    from fugu_tpu_torch.ops import device_merge
+    from fugu_tpu_torch.ops import device_merge, oracle
 
     ns = "smoke"
     cfg = ServerConfig.with_defaults(str(work / "data"), ns)
@@ -1053,8 +1574,8 @@ def phase_write_path(device, tag, work: Path, n_records: int = WRITE_RECORDS,
             passes.append(time.perf_counter() - t0)
         launches = {"block_scorer": bs.launches, "phase_a": ba.launches}
         routes = dict(docs.routes)
-        if device.type == "cuda" and min(launches.values()) <= 0:
-            fail(f"the write path's batch launched {launches}")
+        check_engines_ran(docs, routes, launches, device,
+                          "before compaction")
         if cold != warm:
             fail("write path: cold and warm results differ")
         check_search_many(ds, queries, warm, "before compaction", tag)
@@ -1064,6 +1585,19 @@ def phase_write_path(device, tag, work: Path, n_records: int = WRITE_RECORDS,
             f"{len(queries) / med:.1f} QPS (median of passes "
             f"{[round(x, 4) for x in passes]} s; cold pass {t_cold:.2f} s);"
             f" plans per route over 3 passes {routes}; launches {launches}")
+        # one more warm pass, split into its parts per segment
+        with EngineSplit() as split:
+            t0 = time.perf_counter()
+            run()
+            t_split = time.perf_counter() - t0
+        log(json.dumps({
+            "phase": "write path split", "card": tag.strip("[]"),
+            "segments": len(docs.segments), "queries": len(queries),
+            "pass_s": t_split,
+            "engines_s": sum(e.get("engine_total_s", 0.0)
+                             for e in split.by_segment.values()),
+            "per_segment": list(split.by_segment.values()),
+        }))
 
         # compaction with every source pack resident on the device
         n_before = [s.doc_count for s in docs.segments]
@@ -1116,6 +1650,17 @@ def phase_write_path(device, tag, work: Path, n_records: int = WRITE_RECORDS,
         merged._device_pack = attached
         t_merge = sorted(merge_times)[1]
         t_up = sorted(t for t, _p in ups)[1]
+        # the merge's bound: each source entry read and each merged
+        # entry written once (doc and tf | fid), and the merged flags
+        merge_bytes = (8 * sum(s.n_entries for s in srcs)
+                       + 8 * merged.n_entries + 4 * merged.doc_count)
+        merge_kernels = ""
+        if device.type == "cuda":
+            _wall, busy, kernels = profiled_pass(
+                lambda: device_merge.device_merge_entries(*rec.calls[0]),
+                work)
+            merge_kernels = (f", {kernels} device kernels, device busy "
+                             f"{busy:.3f} ms")
         log(f"compaction {tag}: docs segments {n_before} -> "
             f"{[s.doc_count for s in docs.segments]}; pass {t_pass:.2f} s; "
             f"device merge of {merged.n_entries} postings from "
@@ -1124,18 +1669,30 @@ def phase_write_path(device, tag, work: Path, n_records: int = WRITE_RECORDS,
             f"(e_doc, e_tffid, tomb); device merge {t_merge * 1e3:.3f} ms "
             f"vs host upload of the merged pack {t_up * 1e3:.3f} ms "
             f"(medians of 3, {[round(x * 1e3, 3) for x in merge_times]} vs "
-            f"{[round(t * 1e3, 3) for t, _p in ups]} ms)")
+            f"{[round(t * 1e3, 3) for t, _p in ups]} ms); the merge must "
+            f"move {merge_bytes} bytes, bound "
+            f"{merge_bytes / HBM_BYTES_S * 1e3:.4f} ms{merge_kernels}")
+        bs.launches = 0
+        ba.launches = 0
+        docs.routes.clear()
         passes = []
         for _ in range(3):
             t0 = time.perf_counter()
             after = run()
             passes.append(time.perf_counter() - t0)
+        after_launches = {"block_scorer": bs.launches,
+                          "phase_a": ba.launches}
+        after_routes = dict(docs.routes)
+        check_engines_ran(docs, after_routes, after_launches, device,
+                          "after compaction")
         check_search_many(ds, queries, after, "after compaction", tag)
         log(f"write path QPS {tag}: after compaction, warm search_many "
             f"over {len(docs.segments)} segments "
             f"{len(queries) / sorted(passes)[1]:.1f} QPS (median of passes "
-            f"{[round(x, 4) for x in passes]} s, the first one uploading the "
-            f"merged segment's block-major pack)")
+            f"{[round(x, 4) for x in passes]} s, the first one uploading "
+            f"what the merged segment's engine keeps on the card); plans "
+            f"per route over 3 passes {after_routes}; launches "
+            f"{after_launches}")
 
         # spill to a file:// prefix and restore
         prefix = f"file://{work / 'cold'}"
@@ -1153,10 +1710,23 @@ def phase_write_path(device, tag, work: Path, n_records: int = WRITE_RECORDS,
             f"restored in {t_restore:.2f} s")
         final = run()
         check_search_many(ds, queries, final, "after spill and restore", tag)
+        # page 2 at 100 a page (limit 200), for the served phase
+        query, filters = queries[0]
+        page_two = [(r.id, np.float32(r.score))
+                    for r in ds.search(query, filters, 1, SERVE_PAGE_TWO)]
+        segs = docs.searcher_segments()
+        plan = ds.build_search_plan(query, filters, False)
+        want = [(segs[h.segment_ord].stored[h.doc]["id"], np.float32(h.score))
+                for h in oracle.search(segs, plan, 2 * SERVE_PAGE_TWO,
+                                       docs.stats_for(segs))]
+        if page_two != want[SERVE_PAGE_TWO:] or not page_two:
+            fail(f"write path: page 2 of {query!r} at {SERVE_PAGE_TWO} a "
+                 f"page differs from the oracle's")
         return {
-            "launches": launches, "namespace": ns,
+            "launches": launches, "routes": routes, "namespace": ns,
             "data_path": work / "data", "queries": queries,
             "expected": [[(r.id, r.score) for r in res] for res in final],
+            "page_two": [(d, float(sc)) for d, sc in page_two],
         }
     finally:
         mgr.close()
@@ -1385,6 +1955,18 @@ def phase_serve_entry(tag, work: Path, written: dict, device_args=(),
         if served_hits(cli.stdout) != served_hits(text) or not (
                 served_hits(text)):
             fail("the CLI's hits differ from the HTTP call's")
+        # page 2 at 100 a page: a limit of 200 on every segment
+        body = search_body(*queries[0], ns)
+        body["page"] = {"page": 1, "per_page": SERVE_PAGE_TWO}
+        status2, text2 = http("POST", base + "/search/json", body)
+        want = [(d, np.float32(sc)) for d, sc in written["page_two"]]
+        if status2 != 200 or served_hits(text2) != want:
+            fail(f"served page 2 at {SERVE_PAGE_TWO} a page: HTTP {status2}, "
+                 f"{len(served_hits(text2)) if status2 == 200 else 0} hits "
+                 f"against the oracle-checked {len(want)}")
+        log(f"served {tag}: page 2 of {queries[0][0]!r} at "
+            f"{SERVE_PAGE_TWO} a page equals the oracle-checked answer, "
+            f"{len(want)} hits (ids, order, scores)")
         lat = sorted(res["seconds"])
         log(f"served {tag}: {len(bodies)}/{len(bodies)} responses from "
             f"{clients} clients equal the expected hits (ids, order, "
@@ -1754,12 +2336,19 @@ def main() -> None:
             f"blocks (k = {full[0][-1]}) matched its plain version, docs "
             f"identical and scores bit-identical ({full_err!r}), "
             f"{cuda_ms(lambda: bs.score_rows(*full[0]), 5):.4f} ms")
-        del ni, seg, stats
+        del ni, stats
+
+        # the small-segment engine and the routing ladder
+        t0 = time.perf_counter()
+        phase_small_engine(device, tag, card, work, big=seg)
+        log(f"small-segment engine {tag}: phase {time.perf_counter() - t0:.1f}"
+            f" s")
+        del seg
 
         # phase 6: the namespace write path
         written = phase_write_path(device, tag, work / "write")
-        log(f"write path {tag}: kernel launches in its warm passes "
-            f"{written['launches']}")
+        log(f"write path {tag}: plans per route in its warm passes "
+            f"{written['routes']}, kernel launches {written['launches']}")
 
         # phase 7: the server and the CLI
         phase_serve_entry(tag, work / "serve", written)

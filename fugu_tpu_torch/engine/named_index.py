@@ -18,11 +18,15 @@ holds each carried method to its source):
   and uploads from the host at first query otherwise
 - spill to and restore from a cold tier (``storage/spill.py``)
 
-Reader side: every segment goes through the hybrid device engine (the
-reference's ``FUGU_ENGINE=pallas`` configuration): the two-phase batch
-engine, then the block scorer for the plans phase A declines, then the
-host block-max engine or the oracle for the plans both decline by design
-(phrases, more than 16 clauses or 32 groups, a nonpositive weight, limit
+Reader side: a segment is routed by its size, as the reference's
+default routes it.  A segment of at most ``SMALL_SEGMENT_MAX_DOCS`` docs
+takes the small-segment engine (``ops/scoring.py``: torch ops on the
+index's device, limits up to 4,096); the plans it declines (more than 16
+clauses, more than 32 constrained groups, a limit above 4,096) go to the
+host block-max engine or the oracle.  A larger segment takes the hybrid
+engine: the two-phase batch engine, then the block scorer for the plans
+phase A declines, then the host chain for the plans both decline by
+design (more than 16 clauses or 32 groups, a nonpositive weight, a limit
 above 128).  Quoted phrases take the phrase stream (ops/phrase_stream)
 where its routing cost model sends them, as the reference's default
 does, and the host matcher otherwise.  Device errors, the device merge's
@@ -57,11 +61,48 @@ from fugu_tpu_torch.records import ObjectRecord
 DEVICE_MIN_ENTRIES = 4096
 
 
+#: a segment of at most this many docs takes the small-segment engine
+#: (ops/scoring), a larger one the hybrid engine.  From chip_smoke.py's
+#: routing ladder on an NVIDIA H100 80GB HBM3 at 700 W (232 plans, limit
+#: 10, warm passes in turns, four calls): at 131,072 docs the two
+#: engines' passes overlap and neither is ahead in every call (65-105 ms
+#: against 49-94 ms); at 8,192 docs the small-segment engine is ahead in
+#: every call (29-49 against 45-82 ms), at 262,144 docs the hybrid
+#: engine (91-133 against 64-96 ms).  Both passes are host-bound.  With a
+#: tenth of a segment's docs tombstoned the small-segment engine is
+#: ahead at every rung (87-131 against 166-300 ms at 262,144 docs): a
+#: head term's idf turns nonpositive and the hybrid engine sends such
+#: plans to the host
+SMALL_SEGMENT_MAX_DOCS = 131_072
+
+
+def _engine_name(seg: Segment) -> str:
+    """"small_segment" or "hybrid" for this segment, by its size."""
+    if seg.doc_count <= SMALL_SEGMENT_MAX_DOCS:
+        return "small_segment"
+    return "hybrid"
+
+
 def device_engine(seg: Segment, plans, stats, limit: int,
                   device: torch.device, routes: Optional[dict] = None):
     """Top-``limit`` [(score, doc)] of each plan on one segment through
-    the hybrid engine.  ``routes``, when given, counts the plans each
-    engine answered ("phase_a", "block_scorer", "host")."""
+    the engine its size selects.  A plan the small-segment engine
+    declines comes back as None, for the caller's host chain; the hybrid
+    engine runs its host chain itself.  ``routes``, when given, counts
+    the plans each engine answered ("small_segment", "phase_a",
+    "block_scorer", "host")."""
+    if _engine_name(seg) == "small_segment":
+        from fugu_tpu_torch.ops.scoring import device_search_batch
+
+        res = device_search_batch(seg, plans, stats, limit, device)
+        if routes is not None:
+            declined = sum(r is None for r in res)
+            routes["small_segment"] = (
+                routes.get("small_segment", 0) + len(res) - declined
+            )
+            routes["host"] = routes.get("host", 0) + declined
+        return res
+
     from fugu_tpu_torch.ops.batch_scorer import batch_search_should
     from fugu_tpu_torch.ops.block_scorer import block_search_batch
     from fugu_tpu_torch.ops.blockmax import search_blockmax
@@ -143,8 +184,9 @@ class NamedIndex:
             self.manifest.gc(self.manifest.segment_ids)
         self._stats: Optional[oracle_ops.IndexStats] = None
         self._snap_stats: Optional[tuple] = None
-        #: plans answered per engine ("phase_a", "block_scorer", "host",
-        #: "phrase_stream", "host_only") since the index was opened
+        #: plans answered per engine ("small_segment", "phase_a",
+        #: "block_scorer", "host", "phrase_stream", "host_only") since
+        #: the index was opened
         self.routes: Dict[str, int] = {}
         #: searches run on several threads at once (the server's executor)
         self._routes_lock = threading.Lock()

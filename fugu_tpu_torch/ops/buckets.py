@@ -1,13 +1,14 @@
 """Static-shape bucketing policy.
 
-Everything under ``jit`` must have static shapes; query postings don't.
-We bucket the degrees of freedom — clause count T, longest posting
-window L, result size K, and query batch size B —
-to small fixed ladders so the number of distinct compiled programs stays
-bounded (SURVEY.md §7 "Dynamic-shape postings vs static-shape kernels").
-The ladders are deliberately coarse: on this stack each new program
-costs ~O(minutes) of (remote) XLA compilation, so fewer/larger buckets
-beat tighter padding.
+Query postings have no static shapes.  The kernels' wrappers and the
+staging code bucket the degrees of freedom — clause count T, longest
+posting window L, result size K, and query batch size B — to small
+fixed ladders, so that operand shapes, launch configurations and
+scratch sizes stay few.  The ladders are the reference's, where each
+new shape cost a compilation.  Eager PyTorch and the CUDA kernels
+compile nothing per shape: the small-segment engine (ops/scoring.py)
+sizes its windows from the batch's own longest posting and keeps of
+these ladders only the top rungs, beyond which it declines a plan.
 """
 
 from __future__ import annotations

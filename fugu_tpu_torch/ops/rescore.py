@@ -1,18 +1,23 @@
 """Exact host rescoring of device-selected top-k hits.
 
-TPU f32 division is reciprocal-based and differs from IEEE-rounded
-division on ~1/3 of inputs (measured on this v5e), so scores computed
-IN-KERNEL can never match the host oracle bit-for-bit.  The engines
-therefore use the device for what it is unbeatable at — finding the
-top-k candidates over millions of docs — and recompute the ≤k winning
-scores on the host with exactly the oracle's float sequence
-(ops/oracle.py::score_segment: per-group accumulators summed in group
-order, f32 throughout).  Cost: a few searchsorted lookups over ≤k docs
-per clause — microseconds against a multi-ms device dispatch — and the
-final ordering becomes bit-identical to the scalar reference.
+The device engines do not sum a doc's clause contributions as the host
+oracle does (ops/oracle.py::score_segment: per-group accumulators summed
+in group order, f32 throughout), and they fold a facet clause's
+normalisation into its weight, so a score computed on the device need
+not match the oracle bit for bit, although the card divides with IEEE
+rounding.  On an NVIDIA H100 80GB HBM3 the small-segment engine's
+candidate scores differed in bits from the exact ones on 480 of 24,217
+candidates of a 32,768-doc segment and 356 of 26,311 of a 262,144-doc
+segment (256 plans at limit 100, chip_smoke.py's small-segment phase).
+The engines therefore use the device for finding the top-k candidates
+and recompute the <=k winning scores on the host with exactly the
+oracle's float sequence.  Cost: a few searchsorted lookups over <=k
+docs per clause, 17-27 ms for the 232 plans of a batch at limit 10 on
+that machine's host, and the final ordering becomes bit-identical to
+the scalar reference.
 
 The device ranking and the exact ranking can only disagree by last-ulp
-near-ties, so re-sorting the device's k candidates (k ≥ requested
+near-ties, so re-sorting the device's k candidates (k >= requested
 limit, the kernels' extraction ladder) reproduces the exact top-limit.
 """
 

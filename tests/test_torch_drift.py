@@ -40,11 +40,9 @@ VERBATIM = [
     "index/schema.py",
     "metadata.py",
     "ops/blockmax.py",
-    "ops/buckets.py",
     "ops/mixed.py",
     "ops/oracle.py",
     "ops/phrase.py",
-    "ops/rescore.py",
     "query.py",
     "records.py",
     "server/__init__.py",
@@ -90,6 +88,11 @@ REWRITTEN = {
         # kernel; pack_block_major itself stays verbatim
         "BlockMajorPack", "block_doc_offsets",
     },
+    # the code is the reference's (SAME_CODE below); the docstrings that
+    # quoted the TPU's division and compile times say what holds on the
+    # card, with the counts chip_smoke.py measures
+    "ops/buckets.py": {"__doc__"},
+    "ops/rescore.py": {"__doc__"},
     "native.py": {
         "__doc__", "NATIVE_DIR", "BUILD_DIR", "LIB_PATH", "build_library",
     },
@@ -186,7 +189,7 @@ def test_carried_module_matches_reference(module):
 
 #: modules whose rewritten definitions differ from the reference's in
 #: comments and docstring only: the syntax trees must be equal
-SAME_CODE = ["server/batcher.py"]
+SAME_CODE = ["server/batcher.py", "ops/buckets.py", "ops/rescore.py"]
 
 
 def _code(source: str) -> str:

@@ -28,6 +28,7 @@ from fugu_tpu.ops import phrase_stream as ref_ps
 from fugu_tpu.query import Occur, PhraseClause, QueryGroup, QueryPlan, TermClause
 from fugu_tpu.records import ObjectRecord
 from fugu_tpu_torch import query as pq
+from fugu_tpu_torch.engine import named_index as named_index_module
 from fugu_tpu_torch.engine.named_index import NamedIndex
 from fugu_tpu_torch.index import segment as port_segment
 from fugu_tpu_torch.index.schema import IndexType as PortIndexType
@@ -738,7 +739,23 @@ def test_named_index_routes_phrases(namespace, monkeypatch, forced):
     through the cost constants every phrase plan is answered by the
     phrase stream; with the TPU-fitted constants this small corpus keeps
     them on the host matcher.  Either way the hits equal the reference
-    NamedIndex's and the oracle's."""
+    NamedIndex's and the oracle's.  The other plans take the hybrid
+    engine."""
+    monkeypatch.setattr(named_index_module, "SMALL_SEGMENT_MAX_DOCS", 0)
+    routes = _routes_phrases(namespace, monkeypatch, forced)
+    assert routes["phase_a"] > 0 and not routes.get("small_segment")
+
+
+@pytest.mark.parametrize("forced", [True, False])
+def test_named_index_routes_phrases_beside_small_segment_engine(
+        namespace, monkeypatch, forced):
+    """The same with the size constant at its default: phrases route as
+    before, the other plans take the small-segment engine."""
+    routes = _routes_phrases(namespace, monkeypatch, forced)
+    assert routes["small_segment"] == 12 * 2 and not routes.get("phase_a")
+
+
+def _routes_phrases(namespace, monkeypatch, forced):
     path, ref = namespace
     if forced:
         _force_stream(monkeypatch)
@@ -761,7 +778,7 @@ def test_named_index_routes_phrases(namespace, monkeypatch, forced):
     else:
         assert port.routes["phrase_stream"] == 0
         assert port.routes["host_only"] == n_phrase
-    assert port.routes["phase_a"] > 0
+    return port.routes
 
 
 @pytest.mark.parametrize("where", ["phrase_stream", "phrase_stream_collect"])

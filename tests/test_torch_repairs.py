@@ -34,6 +34,12 @@ def small_segments_on_device(monkeypatch):
     monkeypatch.setattr(PORT.named_index_module, "DEVICE_MIN_ENTRIES", 1)
 
 
+@pytest.fixture()
+def hybrid_engine(monkeypatch):
+    """Segments of any size take the port's hybrid engine."""
+    monkeypatch.setattr(PORT.named_index_module, "SMALL_SEGMENT_MAX_DOCS", 0)
+
+
 def oracle_hits(pkg, ds, query, filters, limit):
     """[(id, float32 score)] of the oracle over ``ds``'s docs snapshot."""
     segs = ds.docs().searcher_segments()
@@ -281,10 +287,26 @@ def random_query(rng) -> str:
     return q.rstrip("ANDOR ") or "w0"
 
 
-def test_device_host_agree_on_random_query_strings(tmp_path):
+def test_device_host_agree_on_random_query_strings(tmp_path, hybrid_engine):
     """Random query strings through parse -> plan -> engine: the port's
     device stack, the port's host-only stack, the reference's host-only
     stack and the oracle agree bit for bit on ids and scores."""
+    routes = random_query_strings_agree(tmp_path)
+    assert routes["phase_a"] > 0 and routes["host_only"] > 0, routes
+    assert not routes.get("small_segment")
+
+
+def test_random_query_strings_small_segment_engine(tmp_path):
+    """The same strings with the size constant at its default: the
+    small-segment engine answers every plan without a phrase."""
+    routes = random_query_strings_agree(tmp_path)
+    assert routes["small_segment"] > 0 and routes["host_only"] > 0, routes
+    assert not routes.get("phase_a") and not routes.get("host"), routes
+
+
+def random_query_strings_agree(tmp_path):
+    """Hold the port's device stack to its host-only stack, the
+    reference's and the oracle; the port's route counts."""
     dev = PORT.Dataset("fuzzns", tmp_path / "port", device="cpu")
     dev.ingest(fuzz_records(PORT))
     host = PORT.Dataset("fuzzns", tmp_path / "port", use_device=False)
@@ -306,8 +328,7 @@ def test_device_host_agree_on_random_query_strings(tmp_path):
         assert g == oracle_hits(PORT, dev, q, filters, per_page), (trial, q)
         checked += len(g)
     assert checked > 100  # the grammar produces real matches
-    routes = dev.docs().routes
-    assert routes["phase_a"] > 0 and routes["host_only"] > 0, routes
+    return dev.docs().routes
 
 
 # -- tests/test_concurrency.py --------------------------------------------------
@@ -486,10 +507,26 @@ def busy_dataset(tmp_path, n=600):
     return ds
 
 
-def test_concurrent_search_many_counts_every_plan(tmp_path):
+def test_concurrent_search_many_counts_every_plan(tmp_path, hybrid_engine):
     """Eight threads batch-search one index: every thread's results equal
     a single-threaded run, and the route counters, updated under the
     index's lock, account for every plan on every segment."""
+    routes = concurrent_search_many(tmp_path)
+    assert routes.get("phase_a", 0) + routes.get("block_scorer", 0) > 0
+    assert not routes.get("small_segment")
+
+
+def test_concurrent_search_many_small_segment_engine(tmp_path):
+    """The same threads with the size constant at its default: the
+    small-segment engine, which keeps no state between calls, answers."""
+    routes = concurrent_search_many(tmp_path)
+    assert routes["small_segment"] > 0
+    assert not routes.get("phase_a") and not routes.get("block_scorer")
+
+
+def concurrent_search_many(tmp_path):
+    """Eight threads' results against a single-threaded run and the
+    oracle; the route counts of the threaded part."""
     ds = busy_dataset(tmp_path)
     rng = np.random.default_rng(9)
     batches = [[(random_query(rng), []) for _ in range(12)] for _ in range(8)]
@@ -515,12 +552,23 @@ def test_concurrent_search_many_counts_every_plan(tmp_path):
     assert not errors, errors
     assert got == want
     assert sum(docs.routes.values()) == 8 * 4 * 12 * len(docs.segments)
+    return docs.routes
 
 
-def test_concurrent_first_queries_balance_residency(tmp_path):
+def test_concurrent_first_queries_balance_residency(tmp_path, hybrid_engine):
     """First queries from several threads may upload a segment's packs
     more than once; the residency books still hold each pack once, at
     its own size."""
+    first_queries_balance_residency(tmp_path, block_major=True)
+
+
+def test_concurrent_first_queries_small_segment_engine(tmp_path):
+    """The same through the small-segment engine, which keeps the entry
+    pack resident and builds no block-major pack."""
+    first_queries_balance_residency(tmp_path, block_major=False)
+
+
+def first_queries_balance_residency(tmp_path, block_major):
     residency.reset_for_test()
     ds = busy_dataset(tmp_path)
     barrier = threading.Barrier(6)
@@ -544,9 +592,9 @@ def test_concurrent_first_queries_balance_residency(tmp_path):
         entry += sum(t.numel() * t.element_size()
                      for t in (pack.e_doc, pack.e_tffid, pack.tomb))
     assert stats["by_kind"]["entry"] == entry
-    assert stats["resident_packs"] == sum(
-        (s._device_pack is not None) + (s._block_major is not None)
-        for s in segs)
+    assert all((getattr(s, "_block_major", None) is not None) == block_major
+               for s in segs)
+    assert stats["resident_packs"] == (1 + block_major) * len(segs)
     residency.reset_for_test()
 
 

@@ -81,10 +81,12 @@ def _free_port():
 @pytest.fixture(scope="module", autouse=True)
 def device_engine_for_small_segments():
     """The port's indexes send every segment with a posting to the
-    device engine (its plain versions here), not only those of 4096
-    postings and more."""
+    hybrid device engine (its plain versions here), not only those of
+    4096 postings and more and of more docs than the small-segment
+    engine's constant."""
     mp = pytest.MonkeyPatch()
     mp.setattr(PORT.named_index_module, "DEVICE_MIN_ENTRIES", 1)
+    mp.setattr(PORT.named_index_module, "SMALL_SEGMENT_MAX_DOCS", 0)
     yield
     mp.undo()
 

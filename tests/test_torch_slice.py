@@ -21,6 +21,7 @@ from fugu_tpu.index.schema import DOCS_SCHEMA, IndexType
 from fugu_tpu.index.segment import SegmentBuilder as RefSegmentBuilder
 from fugu_tpu.records import ObjectRecord
 from fugu_tpu_torch import device as port_device
+from fugu_tpu_torch.engine import named_index as named_index_module
 from fugu_tpu_torch.engine.named_index import NamedIndex
 from fugu_tpu_torch.index.schema import DOCS_SCHEMA as PORT_DOCS_SCHEMA
 from fugu_tpu_torch.index.schema import IndexType as PortIndexType
@@ -90,8 +91,31 @@ def hits_key(hits):
     return [(np.float32(h.score), h.segment_ord, h.doc) for h in hits]
 
 
+@pytest.fixture()
+def hybrid_engine(monkeypatch):
+    """Segments of any size take the port's hybrid engine."""
+    monkeypatch.setattr(named_index_module, "SMALL_SEGMENT_MAX_DOCS", 0)
+
+
 @pytest.mark.parametrize("limit", [10, 100])
-def test_named_index_matches_reference_and_oracle(namespace, limit):
+def test_named_index_matches_reference_and_oracle(namespace, limit,
+                                                  hybrid_engine):
+    routes = matches_reference_and_oracle(namespace, limit)
+    # every engine of the hybrid chain took part
+    assert routes["phase_a"] > 0 and routes["host_only"] > 0
+    assert not routes.get("small_segment")
+
+
+@pytest.mark.parametrize("limit", [10, 100])
+def test_named_index_small_segment_engine_matches(namespace, limit):
+    """The size constant at its default: the small-segment engine takes
+    every plan without a phrase."""
+    routes = matches_reference_and_oracle(namespace, limit)
+    assert routes["small_segment"] > 0 and routes["host_only"] > 0
+    assert not routes.get("phase_a") and not routes.get("host")
+
+
+def matches_reference_and_oracle(namespace, limit):
     path, ref = namespace
     port = NamedIndex("ns", path, PortIndexType.DOCS, device="cpu")
     assert len(port.segments) == 3
@@ -111,12 +135,11 @@ def test_named_index_matches_reference_and_oracle(namespace, limit):
         exp = oracle.search(port.segments, p, limit, stats)
         assert hits_key(g) == hits_key(exp)
         assert hits_key(w) == hits_key(exp)
-    # every engine of the hybrid chain took part
-    assert port.routes["phase_a"] > 0 and port.routes["host_only"] > 0
+    return port.routes
 
 
-def test_declined_plans_route_to_the_host_chain(namespace):
-    """Plans the device engines decline by design (more than 16 clauses,
+def test_declined_plans_route_to_the_host_chain(namespace, hybrid_engine):
+    """Plans the hybrid engine declines by design (more than 16 clauses,
     limit above 128) take the host block-max engine or the oracle, and
     stay exact."""
     from fugu_tpu_torch.query import Occur, QueryGroup, QueryPlan, TermClause
@@ -138,6 +161,33 @@ def test_declined_plans_route_to_the_host_chain(namespace):
                 oracle.search(port.segments, p, limit, stats))
     # per segment: the 17-clause plan, then the limit-200 plan
     assert port.routes["host"] == 2 * len(port.segments)
+
+
+def test_small_segment_engine_declines_to_the_host_chain(namespace):
+    """With the size constant at its default the small-segment engine
+    keeps the limit-200 plan and declines the 17-clause plan and a limit
+    of 4,097 to the host chain; all stay exact."""
+    from fugu_tpu_torch.query import Occur, QueryGroup, QueryPlan, TermClause
+
+    path, _ref = namespace
+    port = NamedIndex("ns", path, PortIndexType.DOCS, device="cpu")
+    wide = QueryPlan(groups=tuple(
+        QueryGroup(Occur.SHOULD, (TermClause("text", f"t{i:05d}"),))
+        for i in range(17)
+    ))
+    narrow = QueryPlan(groups=(
+        QueryGroup(Occur.SHOULD, (TermClause("text", "t00003"),)),
+    ))
+    stats = port.stats()
+    for plans, limit in (([wide, narrow], 10), ([narrow], 200),
+                         ([narrow], 4097)):
+        got = port.search_topk_batch(plans, limit)
+        for p, g in zip(plans, got):
+            assert hits_key(g) == hits_key(
+                oracle.search(port.segments, p, limit, stats))
+    n = len(port.segments)
+    assert port.routes["host"] == 2 * n
+    assert port.routes["small_segment"] == 2 * n
 
 
 def test_stored_docs_and_tombstones_carry_over(namespace):

@@ -159,12 +159,35 @@ def open_pair(tmp_path, compaction, **policy):
     return out
 
 
+@pytest.fixture()
+def hybrid_engine(monkeypatch):
+    """Segments of any size take the port's hybrid engine."""
+    monkeypatch.setattr(PORT.named_index_module, "SMALL_SEGMENT_MAX_DOCS", 0)
+
+
 @pytest.mark.parametrize("compaction", ["off", "sync", "background"])
-def test_seeded_write_sequence_matches_reference(tmp_path, compaction):
+def test_seeded_write_sequence_matches_reference(tmp_path, compaction,
+                                                 hybrid_engine):
     """One seeded sequence of upserts (within-batch duplicate ids,
     overwrites), deletes, tiered and forced compaction, and a spill and
     restore, applied to both packages; identical state and hits after
     every step."""
+    routes = seeded_write_sequence(tmp_path, compaction)
+    # the port answered through its hybrid engine (plain versions here)
+    assert routes["phase_a"] > 0 and not routes.get("small_segment")
+
+
+def test_seeded_write_sequence_small_segment_engine(tmp_path):
+    """The same sequence with the size constant at its default: every
+    segment is small, and the small-segment engine answers."""
+    routes = seeded_write_sequence(tmp_path, "off")
+    assert routes["small_segment"] > 0
+    assert not routes.get("phase_a") and not routes.get("block_scorer")
+
+
+def seeded_write_sequence(tmp_path, compaction):
+    """Run the sequence on both packages, comparing state and hits after
+    every step; the port's route counts."""
     rng = np.random.default_rng(17)
     port, ref = open_pair(tmp_path, compaction, min_num_segments=3)
     plans = None
@@ -233,10 +256,9 @@ def test_seeded_write_sequence_matches_reference(tmp_path, compaction):
     assert port.restore() == ref.restore() == 2
     step()
     assert port.compaction_stats == ref.compaction_stats
-    # the port answered through its device engines (plain versions here)
-    assert port.routes["phase_a"] > 0
     for ni in (port, ref):
         ni.close()
+    return port.routes
 
 
 def test_namespace_directories_are_interchangeable(tmp_path):
@@ -336,6 +358,7 @@ def test_host_only_index_touches_no_tensor(tmp_path, monkeypatch):
     assert device_merge.launches == before
     assert all(s._device_pack is None for s in ni.segments)
     assert not ni.routes.get("phase_a") and not ni.routes.get("block_scorer")
+    assert not ni.routes.get("small_segment")
     for p, h in zip(plans, hits):
         assert hits_key(h) == hits_key(
             oracle.search(ni.segments, p, 10, ni.stats()))
