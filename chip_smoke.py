@@ -57,6 +57,21 @@ no CUDA device exists or the checkout is missing.  Phases:
    the card against the same calls on CPU tensors (scores within 2 ulp,
    docs identical at untied scores); and the 32,768-doc segment once
    more with six tenths tombstoned, where idf turns negative;
+   then doc-range sharding on phase 4's segment and ``NamedIndex``: the
+   mix unsharded (3 warm passes), then under ``enable_sharding`` on a
+   4-shard mesh (every shard on the one card): a cold pass with the
+   pack builds and 3 warm passes, each equal bit for bit to phase 4's
+   oracle-checked results and launching phase A and the block scorer at
+   least once a shard, and one more under ``torch.profiler``; the first
+   64 plans on the 2x2 ("dcn", "d") mesh; the 256-phrase batch through
+   ``batch_phrase_search_sharded`` on 4 shards (256/256, the phrase
+   kernel at least once a shard a pass); one recorded per-shard call of
+   each kernel against its plain version (the comparisons above); the
+   pack builds timed alone; ``dryrun_multichip(4, "cuda")``.  One JSON
+   line ``{"phase": "sharded", ...}``: shards, pack bytes per shard and
+   per device, build seconds, the warm passes beside the unsharded ones,
+   launches a pass, routes, the device's busy and idle share, the peak
+   memory above what was resident;
 6. the write path: a ``DatasetManager`` namespace on the card ingests
    262,144 of bench.py's ingest records in 8 batches through
    ``Dataset.ingest``, overwrites 2,048 ids and deletes 2,048 more, and
@@ -106,9 +121,13 @@ no CUDA device exists or the checkout is missing.  Phases:
    response), the kernels' launches, the plans per route and the idle
    share.  Phase A and the block scorer must have launched during the
    timed pass, and a batch must hold more than one query on average.
+   (c) ``python3 -m fugu_tpu_torch serve --shard-devices 2`` on the
+   write path's directory must log its 2-shard mesh and answer 64 of
+   (a)'s query strings equal to (a)'s answers.
 
 The last lines are the ``kernels`` JSON line (per kernel: launches in
-the 3 warm passes and per pass, ms and plain ms per warm pass, the
+the 3 warm passes and per pass, its launches in the sharded phase's 3
+warm passes (``sharded_launches``), ms and plain ms per warm pass, the
 bound in ms with its bytes and operations, the roofline share, and
 ``library_ms`` null, since no single PyTorch call computes any of the
 three; the phrase kernel also gives its registers a thread, shared
@@ -186,6 +205,11 @@ LADDER_DOCS = (8_192, 32_768, 131_072, 262_144)
 #: c1 + c2 * norm into one multiply-add; every other step is the same
 #: IEEE operation in the same order)
 SMALL_ULPS = 2
+#: the sharded phase: shards of its mesh, plans of the mix on the 2x2
+#: mesh, and query strings the sharded server answers
+SHARDS = 4
+SHARDED_2D_PLANS = 64
+SHARDED_SERVE_QUERIES = 64
 #: the check segment's doc that spans several 2048-row stream chunks
 LONG_PAIR = ("t00005", "t00007")
 LONG_DOC = " ".join([" ".join(LONG_PAIR)] * 1500)
@@ -863,7 +887,8 @@ def phase_phrase_batch(ni, seg, stats, tag):
     plans; every result must equal the oracle, the batch must be routed
     to the stream and the phrase kernel must run with and without slop.
     One more pass is timed in parts.  Returns the first warm pass's
-    kernel calls and the launches of the 3 warm passes."""
+    kernel calls, the launches of the 3 warm passes, the plans and the
+    last warm pass's (oracle-checked) hits."""
     import torch
 
     from fugu_tpu_torch.ops import oracle, residency
@@ -938,7 +963,7 @@ def phase_phrase_batch(ni, seg, stats, tag):
         f"{tok_bytes} bytes on the card; routing constants as fitted on "
         f"the TPU host; one more pass split into staging and launch / "
         f"device wait / fetch and host verify {split} s")
-    return calls, launches
+    return calls, launches, plans, warm
 
 
 # -- the small-segment engine ---------------------------------------------------
@@ -1884,6 +1909,54 @@ def check_responses(res: dict, expected, label: str) -> None:
              f"expected hits")
 
 
+def start_entry_server(work: Path, config: Path, args, env,
+                       server_log: Path):
+    """``python3 -m fugu_tpu_torch serve --port P --config CONFIG *args``
+    as a process of its own in ``work``, its output in ``server_log``:
+    (process, base URL, seconds to its first /health)."""
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    with open(server_log, "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "fugu_tpu_torch", "serve", "--port",
+             str(port), "--config", str(config), *args],
+            cwd=str(work), env=env, stdout=log_file, stderr=log_file)
+    while True:
+        try:
+            status, _text = http("GET", base + "/health", timeout=5)
+            if status == 200:
+                return proc, base, time.perf_counter() - t0
+        except (urllib.error.URLError, OSError):
+            pass
+        if proc.poll() is not None:
+            fail(f"the server exited with {proc.returncode} before it "
+                 f"answered:\n{server_log.read_text()[-3000:]}")
+        if time.perf_counter() - t0 > 300:
+            proc.kill()
+            proc.wait()
+            fail("the server did not answer /health in 300 s")
+        time.sleep(0.1)
+
+
+def stop_entry_server(proc, server_log: Path) -> None:
+    """SIGTERM; the server must exit with code 0 after its graceful
+    shutdown."""
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail("the server did not stop within 120 s of SIGTERM")
+    if proc.returncode != 0:
+        fail(f"the server exited with {proc.returncode} on SIGTERM:\n"
+             f"{server_log.read_text()[-3000:]}")
+    if "shutting down (graceful)" not in server_log.read_text():
+        fail("the server did not shut down gracefully")
+
+
 def phase_serve_entry(tag, work: Path, written: dict, device_args=(),
                       clients: int = SERVE_CLIENTS) -> None:
     """Phase 7a: ``python3 -m fugu_tpu_torch serve`` as a process of its
@@ -1897,33 +1970,13 @@ def phase_serve_entry(tag, work: Path, written: dict, device_args=(),
     config.write_text(json.dumps({
         "data_path": str(written["data_path"]), "default_namespace": ns,
         "namespaces": [{"name": ns}], "compaction": "off"}))
-    port = free_port()
-    base = f"http://127.0.0.1:{port}"
     env = {k: v for k, v in os.environ.items() if not k.startswith("FUGU_")}
     env["PYTHONPATH"] = str(REPO)
     entry = [sys.executable, "-m", "fugu_tpu_torch"]
     server_log = work / "server.log"
-    t0 = time.perf_counter()
-    with open(server_log, "w") as log_file:
-        proc = subprocess.Popen(
-            entry + ["serve", "--port", str(port), "--config", str(config),
-                     *device_args],
-            cwd=str(work), env=env, stdout=log_file, stderr=log_file)
+    proc, base, t_start = start_entry_server(work, config, device_args, env,
+                                             server_log)
     try:
-        while True:
-            try:
-                status, text = http("GET", base + "/health", timeout=5)
-                if status == 200:
-                    break
-            except (urllib.error.URLError, OSError):
-                pass
-            if proc.poll() is not None:
-                fail(f"the server exited with {proc.returncode} before it "
-                     f"answered:\n{server_log.read_text()[-3000:]}")
-            if time.perf_counter() - t0 > 300:
-                fail("the server did not answer /health in 300 s")
-            time.sleep(0.1)
-        t_start = time.perf_counter() - t0
         log(f"server start-up {tag}: {t_start:.2f} s from the command to "
             f"the first /health (import, open the namespace's "
             f"{written['data_path'].name} directory, load the kernels, bind)")
@@ -1976,20 +2029,273 @@ def phase_serve_entry(tag, work: Path, written: dict, device_args=(),
             f"batch; resident {resident} bytes; the CLI printed the HTTP "
             f"call's {len(served_hits(text))} hits")
     finally:
-        if proc.poll() is None:
-            proc.send_signal(signal.SIGTERM)
-            try:
-                proc.wait(timeout=120)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
-                fail("the server did not stop within 120 s of SIGTERM")
-    if proc.returncode != 0:
-        fail(f"the server exited with {proc.returncode} on SIGTERM:\n"
-             f"{server_log.read_text()[-3000:]}")
-    if "shutting down (graceful)" not in server_log.read_text():
-        fail("the server did not shut down gracefully")
+        stop_entry_server(proc, server_log)
     log(f"server stop {tag}: SIGTERM, exit code 0")
+
+
+def phase_serve_sharded(tag, work: Path, written: dict, device_args=(),
+                        n_queries: int = SHARDED_SERVE_QUERIES,
+                        clients: int = 16) -> dict:
+    """The sharded phase's server: ``python3 -m fugu_tpu_torch serve
+    --shard-devices 2`` on the write path's data directory, which must
+    log its mesh and answer ``n_queries`` of phase 7a's query strings
+    equal to the unsharded server's answers (phase 6's oracle-checked
+    hits)."""
+    ns, queries, expected = (written[k] for k in
+                             ("namespace", "queries", "expected"))
+    work.mkdir(parents=True, exist_ok=True)
+    config = work / "server_config.json"
+    config.write_text(json.dumps({
+        "data_path": str(written["data_path"]), "default_namespace": ns,
+        "namespaces": [{"name": ns}], "compaction": "off"}))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("FUGU_")}
+    env["PYTHONPATH"] = str(REPO)
+    server_log = work / "server.log"
+    proc, base, t_start = start_entry_server(
+        work, config, ["--shard-devices", "2", *device_args], env,
+        server_log)
+    try:
+        if "serving over 2 doc-range shards" not in server_log.read_text():
+            fail("the sharded server did not log its 2-shard mesh")
+        bodies = [search_body(q, f, ns) for q, f in queries[:n_queries]]
+        res = drive(work / "drive", base, bodies, clients, len(bodies),
+                    len(bodies))
+        check_responses(res, expected[:n_queries], "sharded server")
+    finally:
+        stop_entry_server(proc, server_log)
+    log(f"served sharded {tag}: serve --shard-devices 2 up in "
+        f"{t_start:.2f} s; {len(bodies)}/{len(bodies)} responses from "
+        f"{clients} clients equal the unsharded server's answers (ids, "
+        f"order, scores) in {res['wall_s']:.2f} s with the pack builds; "
+        f"SIGTERM, exit code 0")
+    return {"queries": len(bodies), "start_s": t_start,
+            "wall_s": res["wall_s"]}
+
+
+def phase_sharded(ni, mix, warm, phrases, phrase_warm, device, tag, card,
+                  work: Path, n_passes: int = 3, n_2d: int = SHARDED_2D_PLANS):
+    """The sharded phase on the main path's segment (see the module
+    docstring): ``ni`` (phase 4's index) serves the mix unsharded and
+    then under ``enable_sharding`` on a ``SHARDS``-shard mesh (a cold
+    pass with the pack builds, ``n_passes`` warm passes, each launching
+    phase A and the block scorer at least once a shard; one more under
+    the profiler on the card), then the first ``n_2d`` plans on the 2x2
+    mesh; then ``phrases`` through ``batch_phrase_search_sharded``; all
+    results bit-identical to phase 4's oracle-checked ``warm`` and
+    ``phrase_warm``.  On the card one recorded per-shard call of each
+    kernel is held to its plain version.  Then ``dryrun_multichip``.
+    Prints one JSON line; returns per kernel its launches in the warm
+    passes and the comparison's max abs err."""
+    import torch
+
+    from fugu_tpu_torch.dryrun import dryrun_multichip
+    from fugu_tpu_torch.ops import batch_scorer as ba
+    from fugu_tpu_torch.ops import block_scorer as bs
+    from fugu_tpu_torch.ops import phrase_stream as ps
+    from fugu_tpu_torch.parallel import batch_sharded as bsh
+    from fugu_tpu_torch.parallel import block_sharded as bksh
+    from fugu_tpu_torch.parallel.phrase_sharded import (
+        batch_phrase_search_sharded,
+    )
+    from fugu_tpu_torch.parallel.sharded import make_mesh
+
+    cuda = device.type == "cuda"
+    seg = ni.segments[0]
+    stats = ni.stats()
+    want = [hits_key((h.score, h.doc) for h in w) for w in warm]
+    by_limit = {}
+    for i, (_cls, _plan, lim) in enumerate(mix):
+        by_limit.setdefault(lim, []).append(i)
+
+    def run_mix(n=len(mix)):
+        out = {}
+        for lim, idx in sorted(by_limit.items()):
+            idx = [i for i in idx if i < n]
+            if idx:
+                hits = ni.search_topk_batch([mix[i][1] for i in idx], lim)
+                out.update(zip(idx, hits))
+        sync(device)
+        return out
+
+    def n_equal(out):
+        return sum(hits_key((h.score, h.doc) for h in hits) == want[i]
+                   for i, hits in out.items())
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return time.perf_counter() - t0, out
+
+    kernels = {"block_scorer": bs, "phase_a": ba, "phrase_stream": ps}
+    line = {"phase": "sharded", "card": card, "shards": SHARDS,
+            "docs": seg.doc_count, "postings": seg.n_entries,
+            "plans": len(mix), "phrases": len(phrases)}
+
+    # the unsharded passes of this call, warm
+    ni.enable_sharding(None)
+    run_mix()
+    line["unsharded_pass_s"] = [timed(run_mix)[0] for _ in range(n_passes)]
+
+    mesh = make_mesh(SHARDS, device=device.type)
+    ni.enable_sharding(mesh)
+    t_cold, cold = timed(run_mix)
+    packs = [ni._sharded_packs[seg.segment_id][1]]
+    if seg.segment_id in ni._sharded_bm:
+        packs.append(ni._sharded_bm[seg.segment_id][1])
+    line["mesh"] = repr(mesh)
+    line["cold_pass_s"] = t_cold
+    line["pack_bytes_per_device"] = {
+        type(p).__name__: {str(d): n for d, n in p.device_bytes.items()}
+        for p in packs}
+    line["pack_bytes_per_shard"] = {
+        "entry": [sum(t.numel() * t.element_size()
+                      for t in (p.e_doc, p.e_tffid, p.tomb))
+                  for p in packs[0].packs],
+        "block_major": [sum(t.numel() * t.element_size() for t in p)
+                        for p in packs[1].packs] if len(packs) > 1 else None}
+    def build_s(cls, *args):
+        """Seconds of one pack build alone: host work and uploads."""
+        sync(device)
+        t0 = time.perf_counter()
+        cls(seg, mesh, *args)
+        sync(device)
+        return time.perf_counter() - t0
+
+    line["pack_build_s"] = {
+        "BlockShardedPack": build_s(bksh.BlockShardedPack),
+        "ShardedBlockMajor": build_s(bsh.ShardedBlockMajor, stats)}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    for mod in kernels.values():
+        mod.launches = 0
+    ni.routes.clear()
+    # per warm pass, the wrappers' calls (block scorer, phase A) and the
+    # kernels' launch counts (on the card every call launches)
+    passes, per_pass, calls_per_pass = [], [], []
+    with Recorder(bs, "score_rows") as rec_s, Recorder(ba, "phasea") as rec_a:
+        for k in range(n_passes):
+            before = (bs.launches, ba.launches, len(rec_s.calls),
+                      len(rec_a.calls))
+            t, out = timed(run_mix)
+            passes.append(t)
+            per_pass.append((bs.launches - before[0], ba.launches - before[1]))
+            calls_per_pass.append((len(rec_s.calls) - before[2],
+                                   len(rec_a.calls) - before[3]))
+            if n_equal(out) != len(mix):
+                fail(f"sharded mix, warm pass {k}: only {n_equal(out)}/"
+                     f"{len(mix)} results equal phase 4's")
+            if k == 0:
+                calls_s, calls_a = list(rec_s.calls), list(rec_a.calls)
+    launches = {"block_scorer": bs.launches, "phase_a": ba.launches}
+    routes = dict(ni.routes)
+    if n_equal(cold) != len(mix):
+        fail(f"sharded mix, cold pass: only {n_equal(cold)}/{len(mix)} "
+             f"results equal phase 4's")
+    if min(min(c) for c in calls_per_pass) < SHARDS or (
+            cuda and per_pass != calls_per_pass):
+        fail(f"sharded mix: calls {calls_per_pass} and launches {per_pass} "
+             f"a pass (block scorer, phase A), want at least {SHARDS} each, "
+             f"every call launched on the card")
+    if not routes.get("sharded_phase_a"):
+        fail(f"sharded mix: no plan took the sharded two-phase engine "
+             f"({routes})")
+    line.update(pass_s=passes, launches_per_pass=per_pass,
+                calls_per_pass=calls_per_pass, routes=routes,
+                results_equal=f"{len(mix)}/{len(mix)}")
+    if cuda:
+        line["max_memory_above_resident"] = (
+            torch.cuda.max_memory_allocated() - held)
+        wall, busy, n_kernels = profiled_pass(run_mix, work)
+        line.update(profiled_wall_ms=wall, device_busy_ms=busy,
+                    device_idle_share=1.0 - busy / wall,
+                    device_kernels=n_kernels)
+    # the cross-shard merge of the block scorer's candidates, replayed
+    # from one more warm pass: its ms beside its bound (each shard's
+    # candidates read once, the merged top k written once)
+    with captured(bksh, "merge_topk") as merges:
+        run_mix()
+    nbytes = sum(
+        sum(t.numel() * t.element_size()
+            for t in (*a[1], *a[2], *(out or ())) if t is not None)
+        for a, _kw, out in merges)
+    line["merge"] = {
+        "calls_per_pass": len(merges), "bound_bytes": nbytes,
+        "bound_ms": nbytes / HBM_BYTES_S * 1e3,
+        "ms": sum(cuda_ms(lambda a=a: bksh.merge_topk(*a), 5)
+                  for a, _kw, _out in merges) if cuda else None}
+
+    # the 2x2 mesh: each slice's two shards merge first
+    mesh2 = make_mesh(SHARDS, n_slices=2, device=device.type)
+    ni.enable_sharding(mesh2)
+    t2, out2 = timed(lambda: run_mix(n_2d))
+    if n_equal(out2) != n_2d:
+        fail(f"2x2 mesh: only {n_equal(out2)}/{n_2d} results equal phase 4's")
+    line.update(mesh_2d=repr(mesh2), mesh_2d_plans=n_2d,
+                mesh_2d_cold_pass_s=t2)
+    ni.enable_sharding(None)
+
+    # the phrase batch, each shard's stream swept by the phrase kernel
+    limits = [10] * len(phrases)
+    pwant = [hits_key((h.score, h.doc) for h in w) for w in phrase_warm]
+
+    def run_phrases():
+        out = batch_phrase_search_sharded(seg, mesh, phrases, stats, limits)
+        sync(device)
+        return out
+
+    t_pcold, pcold = timed(run_phrases)
+    ps.launches = 0
+    p_passes, p_per_pass, p_calls = [], [], []
+    with Recorder(ps, "phrase_stream") as rec_p:
+        for k in range(n_passes):
+            before = (ps.launches, len(rec_p.calls))
+            t, out = timed(run_phrases)
+            p_passes.append(t)
+            p_per_pass.append(ps.launches - before[0])
+            p_calls.append(len(rec_p.calls) - before[1])
+            n_ok = sum(o is not None and hits_key(o) == w
+                       for o, w in zip(out, pwant))
+            if n_ok != len(phrases):
+                fail(f"sharded phrases, warm pass {k}: only {n_ok}/"
+                     f"{len(phrases)} results equal phase 4's")
+            if k == 0:
+                calls_p = list(rec_p.calls)
+    if sum(o is not None and hits_key(o) == w
+           for o, w in zip(pcold, pwant)) != len(phrases):
+        fail("sharded phrases, cold pass: results differ from phase 4's")
+    if min(p_calls) < SHARDS or (cuda and p_per_pass != p_calls):
+        fail(f"sharded phrases: phrase-kernel calls {p_calls} and launches "
+             f"{p_per_pass} a pass, want at least {SHARDS}, every call "
+             f"launched on the card")
+    launches["phrase_stream"] = ps.launches
+    line.update(phrase_cold_pass_s=t_pcold, phrase_pass_s=p_passes,
+                phrase_launches_per_pass=p_per_pass,
+                phrase_calls_per_pass=p_calls,
+                phrase_results_equal=f"{len(phrases)}/{len(phrases)}")
+
+    # one recorded per-shard call of each kernel against its plain version
+    errs = {name: 0.0 for name in kernels}
+    if cuda:
+        for name, calls, cmp, mod in (
+            ("block_scorer", calls_s, compare_scorer, bs),
+            ("phase_a", calls_a, compare_phasea, ba),
+            ("phrase_stream", calls_p, compare_phrase, ps),
+        ):
+            errs[name] = cmp(calls[-1], mod)
+        line["per_shard_calls_match_plain"] = errs
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(SHARDS, device.type)
+    line["dryrun"] = dict(dry, seconds=time.perf_counter() - t0)
+    log(json.dumps(line))
+    log(f"sharded {tag}: {SHARDS} shards on {mesh}: the mix "
+        f"{len(mix)}/{len(mix)} and the 2x2 mesh {n_2d}/{n_2d} equal phase "
+        f"4's oracle-checked results, phrases {len(phrases)}/"
+        f"{len(phrases)}; warm pass {sorted(passes)[len(passes) // 2]:.4f} s"
+        f" against {sorted(line['unsharded_pass_s'])[n_passes // 2]:.4f} s "
+        f"unsharded; launches {launches}")
+    return {name: (launches[name], errs[name]) for name in kernels}
 
 
 class LiveServer:
@@ -2263,7 +2569,8 @@ def main() -> None:
             f"phrase plans over 3 passes follow the overlap credit")
 
         # phase 4, phrases: a 256-phrase batch on the same namespace
-        calls_p, p_launches = phase_phrase_batch(ni, seg, stats, tag)
+        calls_p, p_launches, phrases, phrase_warm = phase_phrase_batch(
+            ni, seg, stats, tag)
         launches["phrase_stream"] = p_launches
 
         # phase 5: kernel vs plain time and bound at the main path's shapes
@@ -2336,6 +2643,15 @@ def main() -> None:
             f"blocks (k = {full[0][-1]}) matched its plain version, docs "
             f"identical and scores bit-identical ({full_err!r}), "
             f"{cuda_ms(lambda: bs.score_rows(*full[0]), 5):.4f} ms")
+
+        # the sharded phase, on the same segment and index
+        t0 = time.perf_counter()
+        sharded = phase_sharded(ni, mix, warm, phrases, phrase_warm, device,
+                                tag, card, work)
+        for k in kernels:
+            k["sharded_launches"], err = sharded[k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"], err)
+        log(f"sharded {tag}: phase {time.perf_counter() - t0:.1f} s")
         del ni, stats
 
         # the small-segment engine and the routing ladder
@@ -2352,6 +2668,7 @@ def main() -> None:
 
         # phase 7: the server and the CLI
         phase_serve_entry(tag, work / "serve", written)
+        phase_serve_sharded(tag, work / "serve_sharded", written)
         phase_serve_load(device, tag, work / "load", work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)

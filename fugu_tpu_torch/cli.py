@@ -10,7 +10,8 @@ Subcommand surface (cli.rs:22-100):
     fugu namespace add-file <name> <file>
     fugu dummy-item [--id ID] [--suffix SFX]
     fugu get-object <id>
-    fugu serve [--port N] [--device D]   (server mode, main.rs:25-29)
+    fugu serve [--port N] [--device D] [--shard-devices N [--shard-slices S]]
+                                         (server mode, main.rs:25-29)
 
 Talks HTTP to the server (default http://localhost:3301), health-probes
 first (cli.rs:436-441), pretty-prints JSON responses.  The routes these
@@ -299,9 +300,10 @@ def _run_cli_inner(args) -> int:
             if getattr(args, "shard_slices", None) is not None:
                 os.environ[cfgmod.ENV_SHARD_SLICES] = str(args.shard_slices)
             # the server runs on the device it was asked for or not at
-            # all: an absent device and a sharded config (doc-range
-            # sharding is not ported) end the command, and nothing is
-            # served from the CPU in their place
+            # all: an absent device or a config the manager refuses (a
+            # mesh whose shards the slices do not divide) ends the
+            # command, and nothing is served from the CPU in its place;
+            # --shard-devices N serves over N doc-range shards there
             device = getattr(args, "device", "cuda")
             try:
                 device_mod.resolve(device)

@@ -62,14 +62,35 @@ class DatasetManager:
         #: it can't stall every other namespace; same-name callers wait
         self._creating: set = set()
         self.datasets: Dict[str, Dataset] = {}
-        if getattr(config, "shard_devices", 0):
-            # doc-range sharding across devices is not ported yet; a
-            # sharded config must not quietly serve from one device
-            raise ConfigError(
-                f"shard_devices={config.shard_devices}: doc-range sharding "
-                "(fugu_tpu_torch.parallel) is not ported yet"
+        self._mesh = None
+        if use_device and getattr(config, "shard_devices", 0):
+            self._mesh = self._build_mesh(
+                config.shard_devices, config.shard_slices, device
             )
         self._initialize_configured_namespaces()
+
+    @staticmethod
+    def _build_mesh(n_devices: int, n_slices: int = 1, device="cuda"):
+        """The mesh of ``n_devices`` doc-range shards on ``device``'s
+        kind (parallel/sharded.make_mesh: shard s on card s mod the
+        cards there are, so one card may hold several shards).  Unlike
+        the reference, which serves single-chip when its backend lacks
+        the devices, a mesh can always be built: the config is honoured
+        or the manager does not start."""
+        from fugu_tpu_torch import device as device_mod
+        from fugu_tpu_torch.parallel.sharded import make_mesh
+
+        try:
+            mesh = make_mesh(n_devices, n_slices=n_slices,
+                             device=device_mod.resolve(device).type)
+        except ValueError as e:  # e.g. shards not divisible by slices
+            raise ConfigError(f"shard_devices={n_devices}, "
+                              f"shard_slices={n_slices}: {e}") from e
+        import logging
+
+        logging.getLogger("fugu_tpu_torch").info(
+            "serving over %d doc-range shards: %s", mesh.size, mesh)
+        return mesh
 
     # -- constructors (config.rs:96-159) --------------------------------------
 
@@ -127,6 +148,10 @@ class DatasetManager:
             device=self.device,
         )
         ds.validate_all_schemas()
+        if self._mesh is not None:
+            # sharded serving reachable from config/env alone: searches
+            # on the docs index route through the sharded engines
+            ds.docs().enable_sharding(self._mesh)
         self.datasets[namespace] = ds
         return ds
 

@@ -33,10 +33,20 @@ does, and the host matcher otherwise.  Device errors, the device merge's
 included, propagate to the caller; there is no device-to-host fallback.
 With ``use_device=False`` the index runs the host engines only and
 touches no tensor.
+
+Under a mesh (:meth:`NamedIndex.enable_sharding`, parallel/) every
+segment's docs split into contiguous ranges, one a shard, and the same
+routing runs shard by shard: a larger segment takes the sharded
+two-phase engine, then the sharded block scorer; a smaller one the
+small-segment engine per shard; streamed phrases the phrase kernel per
+shard.  Each merges its shards' top k into the global top k.  The
+per-segment sharded packs are cached, accounted to the residency budget
+and dropped with their segment.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Union
@@ -132,6 +142,14 @@ def device_engine(seg: Segment, plans, stats, limit: int,
     return res
 
 
+def _evict_sharded_pack(ni: "NamedIndex", sid: str) -> None:
+    ni._sharded_packs.pop(sid, None)
+
+
+def _evict_sharded_bm(ni: "NamedIndex", sid: str) -> None:
+    ni._sharded_bm.pop(sid, None)
+
+
 class NamedIndex:
     def __init__(
         self,
@@ -184,9 +202,15 @@ class NamedIndex:
             self.manifest.gc(self.manifest.segment_ids)
         self._stats: Optional[oracle_ops.IndexStats] = None
         self._snap_stats: Optional[tuple] = None
+        #: the mesh of enable_sharding, and its per-segment packs
+        #: (segment id -> (version, pack))
+        self._mesh = None
+        self._sharded_packs: Dict[str, Any] = {}
+        self._sharded_bm: Dict[str, Any] = {}
         #: plans answered per engine ("small_segment", "phase_a",
-        #: "block_scorer", "host", "phrase_stream", "host_only") since
-        #: the index was opened
+        #: "block_scorer", "host", "phrase_stream", "host_only"; under a
+        #: mesh "sharded_small", "sharded_phase_a", "sharded_block_scorer"
+        #: and "phrase_stream_sharded") since the index was opened
         self.routes: Dict[str, int] = {}
         #: searches run on several threads at once (the server's executor)
         self._routes_lock = threading.Lock()
@@ -243,6 +267,23 @@ class NamedIndex:
     def _invalidate(self) -> None:
         self._stats = None
         self._snap_stats = None
+        # evict sharded caches for segments no longer live (merged away,
+        # spilled): a stale entry would strand its packs in device memory
+        # for the life of the process
+        self._drop_sharded_packs({s.segment_id for s in self.segments})
+
+    def _drop_sharded_packs(self, keep) -> None:
+        """Drop the cached sharded packs of every segment id not in
+        ``keep``, and their residency accounting."""
+        from fugu_tpu_torch.ops import residency
+
+        for cache, rkind in (
+            (self._sharded_packs, "spack"),
+            (self._sharded_bm, "sbm"),
+        ):
+            for sid in [k for k in list(cache) if k not in keep]:
+                cache.pop(sid, None)
+                residency.unregister((rkind, id(self), sid))
 
     def has_field(self, field: str) -> bool:
         return self.schema.has_field(field)
@@ -265,6 +306,118 @@ class NamedIndex:
             for name, n in counts.items():
                 self.routes[name] = self.routes.get(name, 0) + n
 
+    def enable_sharding(self, mesh) -> None:
+        """Route searches through doc-range-sharded packs on ``mesh``
+        (parallel/sharded.make_mesh), or through the unsharded engines
+        again with None; packs build lazily per segment and are dropped
+        when their segment leaves the index."""
+        self._drop_sharded_packs(())
+        self._mesh = mesh
+
+    def _sharded_pack(self, segment: Segment, mesh):
+        from fugu_tpu_torch.ops import residency
+        from fugu_tpu_torch.parallel.block_sharded import BlockShardedPack
+
+        # tombstone count is a valid version (tombstones only grow):
+        # an in-place delete_document mutates segment.tombstones without
+        # changing the segment identity, and a pack cached across it
+        # would keep serving the deleted doc from its stale flags
+        tomb_v = int(segment.tombstones.sum())
+        sid = segment.segment_id
+        cached = self._sharded_packs.get(sid)
+        if (
+            cached is None
+            or cached[1].segment is not segment
+            or cached[1].mesh is not mesh
+            or cached[0] != tomb_v
+        ):
+            # one set of per-shard entry packs serves the block scorer
+            # and the small-segment engine
+            pack = BlockShardedPack(segment, mesh)
+            cached = (tomb_v, pack)
+            self._sharded_packs[sid] = cached
+            residency.reserve(
+                ("spack", id(self), sid),
+                pack.resident_bytes,
+                self,
+                functools.partial(_evict_sharded_pack, sid=sid),
+                kind="sharded_pack",
+            )
+            if not residency.contains(("spack", id(self), sid)):
+                self._sharded_packs.pop(sid, None)
+        else:
+            residency.touch(("spack", id(self), sid))
+        return cached[1]
+
+    def _sharded_block_major(self, segment: Segment, stats, mesh):
+        from fugu_tpu_torch.ops import residency
+        from fugu_tpu_torch.parallel.batch_sharded import ShardedBlockMajor
+
+        key = stats.fingerprint
+        sid = segment.segment_id
+        cached = self._sharded_bm.get(sid)
+        if (
+            cached is None
+            or cached[0] != key
+            or cached[1].segment is not segment
+            or cached[1].mesh is not mesh
+        ):
+            pack = ShardedBlockMajor(segment, mesh, stats)
+            cached = (key, pack)
+            self._sharded_bm[sid] = cached
+            residency.reserve(
+                ("sbm", id(self), sid),
+                pack.resident_bytes,
+                self,
+                functools.partial(_evict_sharded_bm, sid=sid),
+                kind="sharded_block_major",
+            )
+            if not residency.contains(("sbm", id(self), sid)):
+                self._sharded_bm.pop(sid, None)
+        else:
+            residency.touch(("sbm", id(self), sid))
+        return cached[1]
+
+    def _sharded_search_batch(self, seg, plans, stats, limit, mesh, routes):
+        """``device_engine``'s routing over ``mesh``: a segment above
+        SMALL_SEGMENT_MAX_DOCS takes the sharded two-phase engine, then
+        the sharded block scorer for the plans phase A declined; a
+        smaller one the small-segment engine per shard.  Declined plans
+        come back as None, for the caller's host chain; ``routes``
+        counts the plans each engine answered."""
+        from fugu_tpu_torch.parallel.sharded import sharded_search_batch
+
+        pack = self._sharded_pack(seg, mesh)
+        if _engine_name(seg) == "small_segment":
+            res = sharded_search_batch(pack, plans, stats, limit)
+            counts = {"sharded_small": sum(r is not None for r in res)}
+        else:
+            from fugu_tpu_torch.parallel.batch_sharded import (
+                batch_search_sharded,
+            )
+            from fugu_tpu_torch.parallel.block_sharded import (
+                block_sharded_search_batch,
+            )
+
+            pack2 = self._sharded_block_major(seg, stats, mesh)
+            res = batch_search_sharded(pack2, pack, plans, stats,
+                                       [limit] * len(plans))
+            miss = [j for j, r in enumerate(res) if r is None]
+            if miss:
+                fill = block_sharded_search_batch(
+                    pack, [plans[j] for j in miss], stats, limit
+                )
+                for j, r in zip(miss, fill):
+                    res[j] = r
+            counts = {
+                "sharded_phase_a": len(plans) - len(miss),
+                "sharded_block_scorer": sum(res[j] is not None for j in miss),
+            }
+        counts["host"] = sum(r is None for r in res)
+        for name, n in counts.items():
+            routes[name] = routes.get(name, 0) + n
+        return res
+
     def searcher_segments(self) -> List[Segment]:
         """A consistent segment snapshot — pass it back to
         search_topk_batch and use it to resolve hit ordinals to stored
@@ -272,12 +425,13 @@ class NamedIndex:
         return list(self.segments)
 
     def _phrase_stream_begin(self, seg, plans, host_only_idx, n_device,
-                             stats, limit):
+                             stats, limit, mesh):
         """Launch the phrase stream for ``host_only_idx`` on ``seg`` when
         the routing cost model wants it (the reference's default auto
-        mode), else None.  The concurrent device batch of ``n_device``
-        plans sweeps only this segment, so its overlap credit scales by
-        the segment's share of the index's tokens."""
+        mode), else None; under ``mesh`` the stream is sharded.  The
+        concurrent device batch of ``n_device`` plans sweeps only this
+        segment, so its overlap credit scales by the segment's share of
+        the index's tokens."""
         from fugu_tpu_torch.ops.phrase_stream import (
             estimate_device_batch_ms,
             phrase_stream_begin,
@@ -296,6 +450,14 @@ class NamedIndex:
             ),
         ):
             return None
+        if mesh is not None:
+            from fugu_tpu_torch.parallel.phrase_sharded import (
+                phrase_stream_sharded_begin,
+            )
+
+            return phrase_stream_sharded_begin(
+                seg, mesh, phrase_plans, stats, [limit] * len(phrase_plans)
+            )
         return phrase_stream_begin(
             seg, phrase_plans, stats, [limit] * len(phrase_plans),
             self.device,
@@ -327,6 +489,7 @@ class NamedIndex:
         runnable = [
             i for i, p in enumerate(plans) if not p.is_empty and limit > 0
         ]
+        mesh = self._mesh
         for ord_, seg in enumerate(segments):
             on_device = (
                 self.use_device and seg.n_entries >= DEVICE_MIN_ENTRIES
@@ -341,7 +504,8 @@ class NamedIndex:
             # are staged and launched before the device batch, and
             # collected after it; errors propagate
             stream_handle = self._phrase_stream_begin(
-                seg, plans, host_only_idx, len(device_idx), stats, limit
+                seg, plans, host_only_idx, len(device_idx), stats, limit,
+                mesh,
             ) if host_only_idx and on_device else None
             phrase_host_idx = host_only_idx
             if stream_handle is not None:
@@ -370,24 +534,37 @@ class NamedIndex:
             res_map = {}
             counts: Dict[str, int] = {}
             try:
-                if device_idx:
+                if device_idx and mesh is not None:
+                    batch_res = self._sharded_search_batch(
+                        seg, [plans[i] for i in device_idx], stats, limit,
+                        mesh, counts,
+                    )
+                    res_map = dict(zip(device_idx, batch_res))
+                elif device_idx:
                     batch_res = device_engine(
                         seg, [plans[i] for i in device_idx], stats, limit,
                         self.device, counts,
                     )
                     res_map = dict(zip(device_idx, batch_res))
                 if stream_handle is not None:
-                    from fugu_tpu_torch.ops.phrase_stream import (
-                        phrase_stream_collect,
-                    )
+                    if mesh is not None:
+                        from fugu_tpu_torch.parallel.phrase_sharded import (
+                            phrase_stream_sharded_collect as collect,
+                        )
+                    else:
+                        from fugu_tpu_torch.ops.phrase_stream import (
+                            phrase_stream_collect as collect,
+                        )
 
-                    for j, r in enumerate(phrase_stream_collect(stream_handle)):
+                    for j, r in enumerate(collect(stream_handle)):
                         if r is not None:
                             host_map[host_only_idx[j]] = r
             finally:
                 if host_thread is not None:
                     host_thread.join()
-            counts["phrase_stream"] = len(host_only_idx) - len(phrase_host_idx)
+            streamed = ("phrase_stream" if mesh is None
+                        else "phrase_stream_sharded")
+            counts[streamed] = len(host_only_idx) - len(phrase_host_idx)
             counts["host_only"] = len(phrase_host_idx)
             self._count_routes(counts)
             for i in runnable:

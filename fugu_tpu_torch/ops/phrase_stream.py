@@ -456,27 +456,33 @@ class TokenStreamPack:
         )
 
 
-def stream_doc_rows(segment: Segment, field: str, nb_pad: int) -> np.ndarray:
+def stream_doc_rows(segment: Segment, field: str, nb_pad: int,
+                    doc_lo: int = 0, doc_hi: Optional[int] = None
+                    ) -> np.ndarray:
     """i32[nb_pad, BM_BLOCK_DOCS + 1]: the raw stream row, counted from
     its block's first row, at which each doc of the block starts, and
-    the block's row count last (blocks past the segment hold zeros).  A
+    the block's row count last (blocks past the range hold zeros).  A
     doc owns rows [doc_row[j, d], doc_row[j, d + 1]): its positions,
     then KGAP sentinel rows; a doc with no live token owns none.  The
     geometry is build_stream_arrays's, by the same arithmetic, over the
-    whole segment."""
+    docs in [doc_lo, doc_hi) with LOCAL ids (the whole segment by
+    default)."""
     offs = segment.pos_offsets[field]
     data = segment.pos_data[field]
     base = segment.field_entry_base[field]
     n_ent = len(offs) - 1
     e_docs = segment.e_doc[base : base + n_ent].astype(np.int64)
-    doc_count = segment.doc_count
+    if doc_hi is None:
+        doc_hi = segment.doc_count
+    doc_count = doc_hi - doc_lo
     lens = (offs[1:] - offs[:-1]).astype(np.int64)
     maxpos = np.full(doc_count, -1, dtype=np.int64)
     if n_ent:
         last = data[np.maximum(offs[1:] - 1, 0)].astype(np.int64)
         last = np.where(lens > 0, last, -1)
-        np.maximum.at(maxpos, e_docs, last)
-    has = (maxpos >= 0) & ~segment.tombstones[:doc_count]
+        in_range = (e_docs >= doc_lo) & (e_docs < doc_hi)
+        np.maximum.at(maxpos, e_docs[in_range] - doc_lo, last[in_range])
+    has = (maxpos >= 0) & ~segment.tombstones[doc_lo:doc_hi]
     dlen = np.where(has, maxpos + 1 + KGAP, 0)
     row0 = np.zeros(doc_count + 1, dtype=np.int64)
     np.cumsum(dlen, out=row0[1:])

@@ -2,6 +2,7 @@
 
     python3 mix_timing.py --namespace DIR [--tree TREE] [--passes 10]
                           [--profile OUT_DIR] [--docs N] [--device cpu]
+                          [--shards N]
 
 Imports ``chip_smoke`` and ``fugu_tpu_torch`` from ``--tree`` (default:
 the directory of this file), so a tree unpacked with ``git archive``
@@ -11,7 +12,9 @@ corpus (bench.py's generator, ``--docs`` docs, 1M by default) and
 commits it there; later runs, from either tree, open the same files.
 The namespace is opened with ``NamedIndex`` on the card, the mix runs
 once cold (pack uploads) and ``--passes`` times warm, one
-``search_topk_batch`` call per limit as in ``chip_smoke.py``.
+``search_topk_batch`` call per limit as in ``chip_smoke.py``.  With
+``--shards N`` the index serves through ``enable_sharding`` on an
+``N``-shard mesh on the same device.
 
 It prints one JSON line: the tree, the card, the cold seconds, every
 warm pass's seconds, their median, min and max, and the QPS of the
@@ -68,6 +71,7 @@ def main() -> None:
     ap.add_argument("--profile", type=Path, default=None)
     ap.add_argument("--docs", type=int, default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--shards", type=int, default=0)
     opts = ap.parse_args()
     tree = opts.tree.resolve()
     sys.path.insert(0, str(tree))
@@ -98,6 +102,10 @@ def main() -> None:
         cs.log(f"built the namespace in {time.perf_counter() - t0:.1f} s")
         del seg
     ni = NamedIndex("mix", ns, IndexType.DOCS, device=device)
+    if opts.shards:
+        from fugu_tpu_torch.parallel.sharded import make_mesh
+
+        ni.enable_sharding(make_mesh(opts.shards, device=device.type))
     mix = cs.make_query_mix(ni.segments[0])
     by_limit = {}
     for _cls, plan, lim in mix:
@@ -120,6 +128,7 @@ def main() -> None:
     med = sorted(passes)[len(passes) // 2]
     out = {
         "tree": str(opts.tree), "card": card, "docs": ni.segments[0].doc_count,
+        "shards": opts.shards,
         "cold_s": cold, "passes_s": passes, "median_s": med,
         "min_s": min(passes), "max_s": max(passes), "qps": len(mix) / med,
     }

@@ -8,8 +8,9 @@ removed).  The entry-point cases start ``python -m fugu_tpu_torch serve``
 in a subprocess on a temp directory: with ``--device cpu`` it answers
 /health and a search, ``namespace search`` prints the hits, and SIGTERM
 ends it with exit code 0 after the graceful shutdown; without ``--device``
-on a machine with no CUDA device, and with ``--shard-devices``, it exits
-1 with the error and serves nothing."""
+on a machine with no CUDA device it exits 1 with the error and serves
+nothing; with ``--shard-devices 2`` it serves over a 2-shard mesh and
+answers as an unsharded server does."""
 
 import json
 import os
@@ -206,11 +207,65 @@ def test_serve_without_cuda_exits_nonzero_and_serves_nothing(tmp_path, args):
         http("GET", f"http://127.0.0.1:{port}/health")
 
 
-def test_serve_sharded_returns_1_with_config_error(tmp_path):
-    proc = entry(["serve", "--device", "cpu", "--shard-devices", "2",
-                  "--port", str(_free_port())],
-                 tmp_path, entry_env(tmp_path / "data"))
-    assert proc.returncode == 1, proc.stderr[-2000:]
-    assert "shard_devices=2" in proc.stderr
-    assert "not ported" in proc.stderr
-    assert not (tmp_path / "data" / "main").exists()
+def start_server(args, cwd, env):
+    """``python -m fugu_tpu_torch serve`` with ``args`` on a free port,
+    once it answers /health: (process, base URL)."""
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fugu_tpu_torch", "serve", "--port",
+         str(port), *args],
+        cwd=str(cwd), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    deadline = time.time() + 90
+    while True:
+        try:
+            http("GET", base + "/health")
+            return proc, base
+        except (urllib.error.URLError, ConnectionError):
+            if proc.poll() is not None or time.time() > deadline:
+                proc.kill()
+                raise AssertionError(proc.stderr.read()[-3000:])
+            time.sleep(0.2)
+
+
+def stop_server(proc):
+    proc.send_signal(signal.SIGTERM)
+    try:
+        _out, err = proc.communicate(timeout=60)
+    except subprocess.TimeoutExpired:  # pragma: no cover
+        proc.kill()
+        raise
+    assert proc.returncode == 0, err[-3000:]
+    return err
+
+
+def test_serve_sharded_answers_like_unsharded(tmp_path):
+    """``serve --device cpu --shard-devices 2`` serves over a 2-shard
+    mesh, and its answers equal an unsharded server's on the same
+    records (a corpus above DEVICE_MIN_ENTRIES, so the sharded engines
+    answer)."""
+    words = [f"w{i}" for i in range(30)]
+    docs = [{"id": f"s{i}", "namespace": "main",
+             "text": " ".join(words[(i * j) % 30] for j in range(1, 12))}
+            for i in range(600)]
+    queries = ["w1", "w2 w3", "+w4 w5", "w6 -w7", '"w2 w4"', "w11 OR w13"]
+    answers, errs = {}, {}
+    for name, args in (("plain", []), ("sharded", ["--shard-devices", "2"])):
+        (tmp_path / name).mkdir()
+        env = entry_env(tmp_path / name / "data")
+        proc, base = start_server(["--device", "cpu", *args],
+                                  tmp_path / name, env)
+        try:
+            status, _ = http("POST", base + "/ingest", {"data": docs})
+            assert status == 200
+            answers[name] = [
+                comparable(http("POST", base + "/search/main",
+                                {"query": q, "per_page": 20})[1])
+                for q in queries]
+        finally:
+            errs[name] = stop_server(proc)
+    assert "doc-range shards" in errs["sharded"]
+    assert "doc-range shards" not in errs["plain"]
+    assert answers["sharded"] == answers["plain"]
+    assert all(a["total"] > 0 for a in answers["plain"])

@@ -5,7 +5,7 @@ on the reference (``use_device=False``) over the same records; each keeps
 the reference test's assertions, and the two packages must return the
 same results (ids, score floats, order, facets, stats).  Also: the churn
 of tests/test_mutation_fuzz.py at a small size, and a sharded config,
-which the port refuses until doc-range sharding is ported."""
+which serves through the manager's mesh."""
 
 import dataclasses
 import enum
@@ -463,15 +463,28 @@ def test_churn_matches_fresh_build(tmp_path):
 
 
 @pytest.mark.parametrize("how", ["config", "env"])
-def test_sharded_config_is_refused(tmp_path, monkeypatch, how):
-    """shard_devices > 0 needs doc-range sharding, which is not ported:
-    the port refuses the config instead of serving from one device."""
+def test_sharded_config_serves(tmp_path, monkeypatch, how):
+    """shard_devices > 0 from a config dict or FUGU_SHARD_DEVICES builds
+    the manager's mesh on its device, every namespace's docs index
+    serves through it, and the results equal the reference's."""
+    monkeypatch.setattr(PORT.named_index_module, "DEVICE_MIN_ENTRIES", 1)
     if how == "env":
         monkeypatch.setenv("FUGU_SHARD_DEVICES", "4")
         cfg = port_config.ServerConfig.with_defaults(str(tmp_path), "main")
+        n = 4
     else:
         cfg = port_config.ServerConfig.from_dict(
-            {"data_path": str(tmp_path), "shard_devices": 2})
-    with pytest.raises(port_config.ConfigError, match="sharding"):
-        port_manager.DatasetManager(cfg, device="cpu")
-    assert not (tmp_path / "main").exists()
+            {"data_path": str(tmp_path), "default_namespace": "main",
+             "shard_devices": 2})
+        n = 2
+    mgr = port_manager.DatasetManager(cfg, device="cpu")
+    assert mgr._mesh is not None and mgr._mesh.size == n
+    assert {d.type for d in mgr._mesh.devices} == {"cpu"}
+    ds = mgr.default_dataset()
+    assert ds.docs()._mesh is mgr._mesh
+    seed(PORT, ds)
+    want = seeded(REF, tmp_path / "ref")
+    for q in ("quick", "fox OR dogs", "quick -silver"):
+        assert norm(ds.search(q, [], 0, 10)) == norm(want.search(q, [], 0, 10))
+    assert ds.docs().routes.get("sharded_small", 0) > 0, ds.docs().routes
+    mgr.close()

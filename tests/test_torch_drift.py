@@ -57,7 +57,8 @@ VERBATIM = [
 #: module -> definitions the port rewrites, adds or drops
 REWRITTEN = {
     # `serve` takes --device (default cuda) and hands it to the manager;
-    # an absent device or a sharded config ends the command with 1
+    # an absent device or a refused config ends the command with 1, and
+    # --shard-devices serves over the port's mesh on that device
     "cli.py": {"__doc__", "build_parser", "_run_cli_inner"},
     # the CUDA kernels are built and loaded before the socket is bound;
     # the warm-up's comments speak of pack uploads, not of XLA compiles
@@ -74,8 +75,11 @@ REWRITTEN = {
         "import yaml", "ServerConfig.from_file", "ENV_COMPACTION",
         "compaction_mode",
     },
-    # the indexes' device passed through; no mesh until parallel/ is ported
+    # the indexes' device passed through (the manager hands the docs
+    # index its mesh, as the reference's does)
     "engine/dataset.py": {"Dataset.__init__"},
+    # the mesh built on the manager's device (a card may hold several
+    # shards; no single-device fallback) and handed to each namespace
     "engine/manager.py": {
         "DatasetManager.__init__", "DatasetManager._build_mesh",
         "DatasetManager._create",

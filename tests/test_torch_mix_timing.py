@@ -1,5 +1,6 @@
-"""mix_timing.py: the device-busy union of a trace, and one run of the
-script on the CPU at a small corpus."""
+"""mix_timing.py: the device-busy union of a trace, and runs of the
+script on the CPU at a small corpus (unsharded, profiled, and on 4
+shards)."""
 
 import json
 import subprocess
@@ -36,13 +37,15 @@ def test_script_runs_the_mix_on_the_cpu(tmp_path):
            str(ns), "--tree", str(REPO), "--docs", "3000", "--passes", "2",
            "--device", "cpu"]
     runs = []
-    for extra in ([], ["--profile", str(tmp_path / "prof")]):
+    for extra in ([], ["--profile", str(tmp_path / "prof")],
+                  ["--shards", "4"]):
         out = subprocess.run(cmd + extra, capture_output=True, text=True,
                              cwd=tmp_path, timeout=300)
         assert out.returncode == 0, out.stderr[-2000:]
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
-    first, second = runs
+    first, second, sharded = runs
     assert (ns / "meta.json").exists()  # built once, then reopened
+    assert (first["shards"], sharded["shards"]) == (0, 4)
     for r in runs:
         assert r["docs"] == 3000 and len(r["passes_s"]) == 2
         assert r["qps"] == pytest.approx(256 / r["median_s"])

@@ -7,7 +7,7 @@ oracle over the same snapshot.  The scenarios are those of
 tests/test_crash_recovery.py, tests/test_e2e_fuzz.py, the direct
 ``Dataset`` cases of tests/test_api_extensions.py, the OTel-gating and
 spilled-index cases of tests/test_faults.py and tests/test_concurrency.py
-(without its mesh case, which waits for doc-range sharding), followed by
+(its mesh case is in tests/test_torch_sharded_engine.py), followed by
 the port's own concurrency cases: route counters, pack uploads and
 residency books under searches from several threads."""
 
@@ -40,9 +40,11 @@ def hybrid_engine(monkeypatch):
     monkeypatch.setattr(PORT.named_index_module, "SMALL_SEGMENT_MAX_DOCS", 0)
 
 
-def oracle_hits(pkg, ds, query, filters, limit):
-    """[(id, float32 score)] of the oracle over ``ds``'s docs snapshot."""
-    segs = ds.docs().searcher_segments()
+def oracle_hits(pkg, ds, query, filters, limit, segs=None):
+    """[(id, float32 score)] of the oracle over ``segs``, by default
+    ``ds``'s docs snapshot."""
+    if segs is None:
+        segs = ds.docs().searcher_segments()
     stats = ds.docs().stats_for(segs)
     plan = ds.build_search_plan(query, filters, False)
     return [(segs[h.segment_ord].stored[h.doc]["id"], np.float32(h.score))
@@ -54,10 +56,20 @@ def hits(results):
 
 
 def checked_search(pkg, ds, query, filters, limit, **kw):
-    """``ds.search`` held to the oracle (for default k1 and b)."""
+    """``ds.search`` held to the oracle (for default k1 and b) on the
+    segments the search read.  Background compaction is drained first,
+    and no merge may swap the segments between the search and the
+    oracle: a merge that drops tombstoned docs changes the doc
+    frequencies, so the two would score different snapshots."""
+    assert ds.wait_compaction(60), "background compaction did not drain"
+    segs = ds.docs().searcher_segments()
     got = ds.search(query, filters, 0, limit, **kw)
     if not kw:
-        assert hits(got) == oracle_hits(pkg, ds, query, filters, limit), query
+        want = oracle_hits(pkg, ds, query, filters, limit, segs)
+        now = ds.docs().searcher_segments()
+        assert len(now) == len(segs) and all(
+            a is b for a, b in zip(now, segs)), "a merge ran during the check"
+        assert hits(got) == want, query
     return got
 
 
