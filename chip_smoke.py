@@ -71,7 +71,23 @@ no CUDA device exists or the checkout is missing.  Phases:
    line ``{"phase": "sharded", ...}``: shards, pack bytes per shard and
    per device, build seconds, the warm passes beside the unsharded ones,
    launches a pass, routes, the device's busy and idle share, the peak
-   memory above what was resident;
+   memory above what was resident.  Before the sharded phase, bench's
+   measurement sequence on the same segment (``fugu_tpu_torch.bench.run``:
+   the port's ``device_run`` over bench's mix, warm passes, each class,
+   each class at full batch, single and pipelined block-scorer calls,
+   the host block-max and oracle baselines, the host probes): every
+   result must equal the block-max baseline's in order (``exact_order``
+   256/256), and phase A, the block scorer and the phrase kernel (in the
+   phrase class at full batch) must have launched; it prints bench's
+   JSON line and a ``{"phase": "bench", ...}`` line of its routes,
+   launches and pack bytes.  After the small-segment engine, the
+   residency drill (``fugu_tpu_torch/tools/residency_live.py``) on
+   copies of the 1M segment and the 262,144-doc ladder segment with
+   nothing on the device: big, small, big, 48 device-path plans of the
+   mix a step through ``batch_search`` with 8 spot checks exact against
+   the oracle, the budget pinned after step 0 to the 1M packs plus 32
+   MB (below the small segment's packs); every switch must evict (one
+   ``{"phase": "residency", ...}`` line);
 6. the write path: a ``DatasetManager`` namespace on the card ingests
    262,144 of bench.py's ingest records in 8 batches through
    ``Dataset.ingest``, overwrites 2,048 ids and deletes 2,048 more, and
@@ -96,15 +112,16 @@ no CUDA device exists or the checkout is missing.  Phases:
    argument, so on the card; it must log that it loaded the kernels
    before it answers /health.  The write path's 256 query strings go to
    ``/search/json`` from 64 concurrent clients (a client process,
-   ``chip_smoke.py --drive``): every response must be 200 and equal the
-   answers phase 6 held to the oracle, in ids, order and scores; one
+   ``python3 -m fugu_tpu_torch.tools.live_load --drive``): every response
+   must be 200 and equal the answers phase 6 held to the oracle, in ids, order and scores; one
    page-2 request at ``per_page`` 100 (limit 200) must equal phase 6's
    oracle-checked page; ``/metrics`` must show resident device bytes and fewer
    ``search_many`` calls than requests (the micro-batcher coalesced);
    ``python3 -m fugu_tpu_torch namespace search`` must print the hits of
    the same HTTP call; SIGTERM must end the server with exit code 0.  It
-   prints the server's start-up seconds.  (b) Phase 4's 1M-doc segment
-   is mounted as a namespace's docs index (its files linked beside its
+   prints the server's start-up seconds.  (b) Through
+   ``fugu_tpu_torch/tools/live_load.py``: phase 4's 1M-doc segment is
+   mounted as a namespace's docs index (its files linked beside a
    generation-1 manifest; the seeded corpus stores each doc's id, so a
    hit carries id and score) and served in process, the app on a thread
    with its own event loop.  256 query strings over its vocabulary,
@@ -126,8 +143,9 @@ no CUDA device exists or the checkout is missing.  Phases:
    (a)'s query strings equal to (a)'s answers.
 
 The last lines are the ``kernels`` JSON line (per kernel: launches in
-the 3 warm passes and per pass, its launches in the sharded phase's 3
-warm passes (``sharded_launches``), ms and plain ms per warm pass, the
+the 3 warm passes and per pass, its launches in the bench phase
+(``bench_launches``) and in the sharded phase's 3 warm passes
+(``sharded_launches``), ms and plain ms per warm pass, the
 bound in ms with its bytes and operations, the roofline share, and
 ``library_ms`` null, since no single PyTorch call computes any of the
 three; the phrase kernel also gives its registers a thread, shared
@@ -144,13 +162,11 @@ import json
 import os
 import shutil
 import signal
-import socket
 import subprocess
 import sys
 import tempfile
 import time
 import urllib.error
-import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -188,12 +204,6 @@ SERVE_PAGE_TWO = 100
 LOAD_LEVELS = (64, 256)
 LOAD_REQUESTS = 2_048
 LOAD_PROFILED = 512
-#: the per-stage histograms of /metrics that a load level reports
-LOAD_STAGES = (
-    "fugu_search_queue_wait_seconds", "fugu_search_exec_wait_seconds",
-    "fugu_search_engine_seconds", "fugu_search_serialize_seconds",
-    "fugu_search_seconds",
-)
 #: the small-segment engine's phase: the sizes of its check segments, the
 #: limits it is held to the oracle at (per_page 10 and 100, pages 1 to 3,
 #: the rungs of K_BUCKETS) and the sizes of the routing ladder's segments
@@ -240,15 +250,13 @@ def card_line() -> str:
 
 def zipf_texts(n_docs: int, rng, vocab_size: int):
     """bench.py's doc texts: Zipf 1.07 over ``vocab_size`` terms,
-    Poisson(55) lengths clipped to [5, 200]."""
-    vocab = np.array([f"t{i:05d}" for i in range(vocab_size)])
-    p = 1.0 / np.arange(1, vocab_size + 1) ** 1.07
-    p /= p.sum()
+    Poisson(55) lengths clipped to [5, 200]; the words drawn in chunks
+    of docs (``fugu_tpu_torch.bench.iter_texts``), the words of one
+    draw."""
+    from fugu_tpu_torch.bench import iter_texts
+
     lens = np.clip(rng.poisson(MEAN_DOC_LEN, n_docs), 5, 200)
-    starts = np.zeros(n_docs + 1, dtype=np.int64)
-    np.cumsum(lens, out=starts[1:])
-    words = vocab[rng.choice(vocab_size, size=int(starts[-1]), p=p)]
-    return [" ".join(words[starts[i]:starts[i + 1]]) for i in range(n_docs)]
+    return [t for chunk in iter_texts(rng, lens, vocab_size) for t in chunk]
 
 
 def corpus_texts(n_docs: int, seed: int, vocab_size: int):
@@ -338,53 +346,10 @@ def should_plan(words):
 def make_query_mix(seg, n_queries: int = 256, seed_offset: int = 1):
     """bench.py's 256-query mix (bench.py:181-279): [(class, plan, limit)]
     with should/must/mustnot/facet/phrase classes at limit 10 and a
-    limit-100 class."""
-    from fugu_tpu_torch.query import (
-        Occur, PhraseClause, QueryGroup, QueryPlan, TermClause,
-    )
+    limit-100 class (``fugu_tpu_torch.bench.make_query_mix``)."""
+    from fugu_tpu_torch.bench import make_query_mix as bench_mix
 
-    rng = np.random.default_rng(SEED + seed_offset)
-    pick = df_picker(seg, rng)
-
-    counts = {"should": 120, "must": 40, "mustnot": 24, "facet": 32,
-              "phrase": 24, "limit100": 16}
-    scale = n_queries / sum(counts.values())
-
-    def n_of(cls):
-        return max(int(counts[cls] * scale), 1)
-
-    mix = []
-    for _ in range(n_of("should")):
-        mix.append(("should", should_plan(pick(int(rng.integers(1, 5)))), 10))
-    for _ in range(n_of("must")):
-        words = pick(int(rng.integers(2, 4)))
-        mix.append(("must", QueryPlan(groups=tuple(
-            QueryGroup(Occur.MUST, (TermClause("text", t),)) for t in words
-        )), 10))
-    for _ in range(n_of("mustnot")):
-        words = pick(int(rng.integers(2, 4)))
-        groups = [
-            QueryGroup(Occur.SHOULD, (TermClause("text", t),))
-            for t in words[:-1]
-        ] + [QueryGroup(Occur.MUST_NOT, (TermClause("text", words[-1]),))]
-        mix.append(("mustnot", QueryPlan(groups=tuple(groups)), 10))
-    for _ in range(n_of("facet")):
-        words = pick(int(rng.integers(1, 4)))
-        groups = [
-            QueryGroup(Occur.SHOULD, (TermClause("text", t),)) for t in words
-        ] + [QueryGroup(Occur.MUST, (TermClause(
-            "", f"/source/{int(rng.integers(0, 20))}", is_facet=True),))]
-        mix.append(("facet", QueryPlan(groups=tuple(groups)), 10))
-    for _ in range(n_of("phrase")):
-        words = pick(2)
-        mix.append(("phrase", QueryPlan(groups=(QueryGroup(
-            Occur.SHOULD, phrases=(PhraseClause("text", tuple(words)),)),)),
-            10))
-    for _ in range(n_of("limit100")):
-        mix.append(
-            ("limit100", should_plan(pick(int(rng.integers(1, 5)))), 100)
-        )
-    return mix[:n_queries]
+    return bench_mix(seg, seed_offset=seed_offset, n_queries=n_queries)
 
 
 class Recorder:
@@ -966,6 +931,73 @@ def phase_phrase_batch(ni, seg, stats, tag):
     return calls, launches, plans, warm
 
 
+# -- bench and the residency drill ---------------------------------------------
+
+
+def phase_bench(seg, stats, device, tag, card, n_passes: int = 3):
+    """The bench phase on the main path's segment, in process:
+    ``fugu_tpu_torch.bench.run`` (the port's ``device_run`` over bench's
+    mix, each class, each class at full batch, single and pipelined
+    block-scorer calls, the host baselines, parity and the host probes).
+    Every result must equal the host block-max baseline's in order
+    (``exact_order`` n/n); phase A, the block scorer and the phrase
+    kernel must each have launched, the phrase kernel in the phrase
+    class at full batch.  Prints bench's JSON line and a line of its
+    details; returns each kernel's launches over the phase."""
+    from fugu_tpu_torch import bench
+    from fugu_tpu_torch.ops import batch_scorer as ba
+    from fugu_tpu_torch.ops import block_scorer as bs
+    from fugu_tpu_torch.ops import phrase_stream as ps
+
+    mods = {"block_scorer": bs, "phase_a": ba, "phrase_stream": ps}
+    for mod in mods.values():
+        mod.launches = 0
+    detail = {"card": card}
+    t0 = time.perf_counter()
+    line = bench.run(seg, stats, device, n_passes=n_passes, detail=detail)
+    launches = {name: mod.launches for name, mod in mods.items()}
+    log(json.dumps(line))
+    log(json.dumps({"phase": "bench", "seconds": time.perf_counter() - t0,
+                    "launches": launches, **detail}))
+    exact, total = line["exact_order"].split("/")
+    if exact != total:
+        fail(f"bench: exact order {line['exact_order']} against the host "
+             f"block-max baseline")
+    phrase_full = detail.get("class_full", {}).get("phrase", {})
+    if device.type == "cuda" and (
+            min(launches.values()) <= 0
+            or phrase_full.get("launches", {}).get("phrase_stream", 0) <= 0):
+        fail(f"bench: launches {launches}, phrase class at full batch "
+             f"{phrase_full.get('launches')}")
+    log(f"bench {tag}: {line['value']} QPS, exact order "
+        f"{line['exact_order']}, launches {launches}")
+    return launches
+
+
+def phase_residency(big, small, device, tag, card,
+                    headroom_bytes: int = 32 << 20, n_plans: int = 48):
+    """The residency drill (``fugu_tpu_torch/tools/residency_live.py``)
+    on ``big`` and ``small``, segments with nothing on the device: big,
+    small, big, each step ``n_plans`` device-path plans of bench's mix
+    through ``batch_search`` with 8 spot checks exact against the
+    oracle, the budget pinned after step 0 to big's packs plus
+    ``headroom_bytes`` (below the small namespace's pack bytes).  Every
+    switch must evict.  Prints one JSON line."""
+    from fugu_tpu_torch.tools.residency_live import drill
+
+    out = drill({"big": big, "small": small}, ("big", "small", "big"),
+                device, headroom_bytes, n_plans)
+    out.update(phase="residency", card=card)
+    log(json.dumps(out))
+    if not out["ok"]:
+        fail(f"residency drill: {out['problems']}")
+    log(f"residency {tag}: {[t['ns_docs'] for t in out['transitions']]} "
+        f"docs in turns, evictions "
+        f"{[t['evictions'] for t in out['transitions']]}, spot checks "
+        f"{[t['spot_exact'] for t in out['transitions']]} exact, budget "
+        f"{out['budget_bytes']} bytes")
+
+
 # -- the small-segment engine ---------------------------------------------------
 
 
@@ -1072,7 +1104,7 @@ def profiled_pass(fn, work: Path):
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from mix_timing import busy_ms
+    from fugu_tpu_torch.tools.live_load import busy_ms
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1295,7 +1327,8 @@ def phase_small_engine(device, tag, card, work: Path, big=None,
     ``limits`` and a limit of 4,097 declined; on the first once more
     with six tenths tombstoned, where most terms' idf is negative; on
     the card, :func:`check_card_against_cpu`.  Returns the ladder's
-    lines."""
+    lines and the segments of each size with none of their docs
+    tombstoned."""
     import dataclasses
 
     from fugu_tpu_torch.ops import oracle, scoring
@@ -1319,7 +1352,7 @@ def phase_small_engine(device, tag, card, work: Path, big=None,
         dead = np.random.default_rng(SEED + 301).random(seg.doc_count) < share
         return dataclasses.replace(seg, tombstones=dead, _device_pack=None)
 
-    segs = {n: tombstoned(seg, 0.1) for n, seg in segs.items()}
+    plain, segs = segs, {n: tombstoned(seg, 0.1) for n, seg in segs.items()}
     lines += [ladder_rung(segs[n], device, tag, card, work, tombstoned=0.1)
               for n in sorted(ladder_docs)]
     for n in check_docs:
@@ -1344,7 +1377,7 @@ def phase_small_engine(device, tag, card, work: Path, big=None,
     check_small_engine(seg, stats, plans, limits[:3], device, tag,
                        f"{seg.doc_count} docs, six tenths tombstoned, "
                        f"{negative} plans with a nonpositive weight")
-    return lines
+    return lines, plain
 
 
 class EngineSplit:
@@ -1760,160 +1793,13 @@ def phase_write_path(device, tag, work: Path, n_records: int = WRITE_RECORDS,
 # -- phase 7: the server and the CLI -------------------------------------------
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def http(method: str, url: str, body=None, timeout: float = 120.0):
-    """(status, text) of one request."""
-    data = json.dumps(body).encode() if body is not None else None
-    req = urllib.request.Request(
-        url, data=data, method=method,
-        headers={"Content-Type": "application/json"} if data else {})
-    try:
-        with urllib.request.urlopen(req, timeout=timeout) as resp:
-            return resp.status, resp.read().decode()
-    except urllib.error.HTTPError as e:
-        return e.code, e.read().decode()
-
-
-def scrape(base: str) -> dict:
-    """/metrics as {sample name with labels: value}."""
-    status, text = http("GET", base + "/metrics")
-    if status != 200:
-        fail(f"/metrics answered {status}")
-    out = {}
-    for line in text.splitlines():
-        name, _, value = line.rpartition(" ")
-        if name:
-            out[name] = float(value)
-    return out
-
-
-def search_body(query, filters, namespace: str) -> dict:
-    return {"query": query, "filters": list(filters), "namespace": namespace,
-            "page": {"page": 0, "per_page": WRITE_PAGE}}
-
-
-def served_hits(text: str):
-    """[(id, float32 score)] of a search response body."""
-    return [(r["id"], np.float32(r["score"]))
-            for r in json.loads(text)["results"]]
-
-
-def drive_main(job_path: Path) -> None:
-    """The load client, a process of its own (``chip_smoke.py --drive
-    JOB``): ``concurrency`` closed-loop clients, one keep-alive
-    connection each, POST the job's bodies in turn to ``url`` until
-    ``total`` requests are answered.  It prints READY once every
-    connection is open, starts at a line on its standard input, prints
-    DONE after the last answer, and writes each request's status and
-    seconds, the loop's wall seconds and the first ``keep`` response
-    bodies to the job's ``out`` file."""
-    import asyncio
-
-    import aiohttp
-
-    job = json.loads(job_path.read_text())
-    bodies = [json.dumps(b).encode() for b in job["bodies"]]
-    total, keep = job["total"], job["keep"]
-    statuses, seconds, texts = [0] * total, [0.0] * total, [None] * keep
-    headers = {"Content-Type": "application/json"}
-
-    async def run():
-        nxt = 0
-        conn = aiohttp.TCPConnector(limit=0)
-        timeout = aiohttp.ClientTimeout(total=600)
-        async with aiohttp.ClientSession(connector=conn,
-                                         timeout=timeout) as pool:
-            async def open_connection():
-                async with pool.get(job["base"] + "/hi") as resp:
-                    await resp.read()
-
-            await asyncio.gather(
-                *(open_connection() for _ in range(job["concurrency"])))
-            print("READY", flush=True)
-            await asyncio.get_running_loop().run_in_executor(
-                None, sys.stdin.readline)
-
-            async def client():
-                nonlocal nxt
-                while nxt < total:
-                    i, nxt = nxt, nxt + 1
-                    t0 = time.perf_counter()
-                    async with pool.post(
-                            job["url"], data=bodies[i % len(bodies)],
-                            headers=headers) as resp:
-                        text = await resp.text()
-                    seconds[i] = time.perf_counter() - t0
-                    statuses[i] = resp.status
-                    if i < keep:
-                        texts[i] = text
-
-            t0 = time.perf_counter()
-            await asyncio.gather(
-                *(client() for _ in range(job["concurrency"])))
-            return time.perf_counter() - t0
-
-    wall = asyncio.run(run())
-    Path(job["out"]).write_text(json.dumps({
-        "wall_s": wall, "statuses": statuses, "seconds": seconds,
-        "texts": texts}))
-    print("DONE", flush=True)
-
-
-def drive(work: Path, base: str, bodies, concurrency: int, total: int,
-          keep: int, during=contextlib.nullcontext) -> dict:
-    """Run the load client (:func:`drive_main`) and return what it wrote;
-    its request loop runs inside ``during()``."""
-    work.mkdir(parents=True, exist_ok=True)
-    job, out = work / "job.json", work / "out.json"
-    job.write_text(json.dumps({
-        "base": base, "url": base + "/search/json", "bodies": bodies,
-        "concurrency": concurrency, "total": total, "keep": keep,
-        "out": str(out)}))
-    proc = subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--drive", str(job)],
-        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
-    try:
-        if proc.stdout.readline().strip() != "READY":
-            fail("the load client did not start")
-        with during():
-            proc.stdin.write("GO\n")
-            proc.stdin.flush()
-            done = proc.stdout.readline().strip()
-        if done != "DONE" or proc.wait(timeout=60) != 0:
-            fail(f"the load client ended with {done!r}, code {proc.poll()}")
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    return json.loads(out.read_text())
-
-
-def check_responses(res: dict, expected, label: str) -> None:
-    """Every request answered 200, and every kept body's hits equal
-    ``expected`` of its query (ids, order and float32 scores)."""
-    bad = [s for s in res["statuses"] if s != 200]
-    if bad:
-        fail(f"{label}: {len(bad)} of {len(res['statuses'])} responses were "
-             f"not 200 (first {bad[0]})")
-    n_ok = sum(
-        served_hits(text) == [(d, np.float32(s))
-                              for d, s in expected[i % len(expected)]]
-        for i, text in enumerate(res["texts"]))
-    if n_ok != len(res["texts"]):
-        fail(f"{label}: only {n_ok}/{len(res['texts'])} responses equal the "
-             f"expected hits")
-
-
 def start_entry_server(work: Path, config: Path, args, env,
                        server_log: Path):
     """``python3 -m fugu_tpu_torch serve --port P --config CONFIG *args``
     as a process of its own in ``work``, its output in ``server_log``:
     (process, base URL, seconds to its first /health)."""
+    from fugu_tpu_torch.tools.live_load import free_port, http
+
     port = free_port()
     base = f"http://127.0.0.1:{port}"
     t0 = time.perf_counter()
@@ -1963,6 +1849,10 @@ def phase_serve_entry(tag, work: Path, written: dict, device_args=(),
     own on the write path's data directory (see the module docstring).
     ``device_args`` is empty on the card: the server takes its default
     device."""
+    from fugu_tpu_torch.tools.live_load import (
+        check_responses, drive, http, scrape, search_body, served_hits,
+    )
+
     ns, queries, expected = (written[k] for k in
                              ("namespace", "queries", "expected"))
     work.mkdir(parents=True, exist_ok=True)
@@ -2041,6 +1931,10 @@ def phase_serve_sharded(tag, work: Path, written: dict, device_args=(),
     log its mesh and answer ``n_queries`` of phase 7a's query strings
     equal to the unsharded server's answers (phase 6's oracle-checked
     hits)."""
+    from fugu_tpu_torch.tools.live_load import (
+        check_responses, drive, search_body,
+    )
+
     ns, queries, expected = (written[k] for k in
                              ("namespace", "queries", "expected"))
     work.mkdir(parents=True, exist_ok=True)
@@ -2298,158 +2192,55 @@ def phase_sharded(ni, mix, warm, phrases, phrase_warm, device, tag, card,
     return {name: (launches[name], errs[name]) for name in kernels}
 
 
-class LiveServer:
-    """The port's app over ``db`` on a thread with its own event loop."""
-
-    def __init__(self, db):
-        import asyncio
-        import threading
-
-        self.db = db
-        self.port = free_port()
-        self.base = f"http://127.0.0.1:{self.port}"
-        self._loop = asyncio.new_event_loop()
-        self._up = threading.Event()
-        self._thread = threading.Thread(target=self._run, daemon=True)
-        self._thread.start()
-        if not self._up.wait(60):
-            fail("the in-process server did not start")
-
-    def _run(self):
-        import asyncio
-
-        from aiohttp import web
-
-        from fugu_tpu_torch.server import create_app
-
-        asyncio.set_event_loop(self._loop)
-
-        async def boot():
-            self._runner = web.AppRunner(create_app(self.db))
-            await self._runner.setup()
-            await web.TCPSite(self._runner, "127.0.0.1", self.port).start()
-            self._up.set()
-
-        self._loop.run_until_complete(boot())
-        self._loop.run_forever()
-
-    def stop(self):
-        import asyncio
-
-        asyncio.run_coroutine_threadsafe(
-            self._runner.cleanup(), self._loop).result(60)
-        self._loop.call_soon_threadsafe(self._loop.stop)
-        self._thread.join(60)
-
-
 def phase_serve_load(device, tag, work: Path, corpus_dir: Path, card: str,
                      levels=LOAD_LEVELS, n_requests: int = LOAD_REQUESTS,
                      n_profiled: int = LOAD_PROFILED,
                      n_queries: int = 256) -> None:
     """Phase 7b: the corpus segment committed in ``corpus_dir`` mounted
     as a namespace's docs index and served in process under closed-loop
-    load (see the module docstring)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-
+    load, through ``fugu_tpu_torch/tools/live_load.py`` (see the module
+    docstring)."""
     from fugu_tpu_torch.config import ServerConfig
     from fugu_tpu_torch.engine.manager import DatasetManager
-    from fugu_tpu_torch.ops import batch_scorer as ba
-    from fugu_tpu_torch.ops import block_scorer as bs
-    from mix_timing import busy_ms
+    from fugu_tpu_torch.index.manifest import Manifest
+    from fugu_tpu_torch.tools import live_load
 
     ns = "load"
-    docs_dir = work / "data" / ns / "docs"
-    docs_dir.mkdir(parents=True)
-    # the segment's files under another name, and its generation-1 manifest
-    for f in list(corpus_dir.glob("seg-*")) + [corpus_dir / "meta.json"]:
-        os.link(f, docs_dir / f.name)
+    src = Manifest(corpus_dir)
+    src.load()
+    live_load.mount(work / "data" / ns / "docs", corpus_dir,
+                    [(e["id"], e["doc_count"]) for e in src.entries])
     cfg = ServerConfig.with_defaults(str(work / "data"), ns)
     cfg.compaction = "off"
     t0 = time.perf_counter()
     mgr = DatasetManager(cfg, device=device)
-    ds = mgr.get_dataset(ns)
-    docs = ds.docs()
-    seg = docs.segments[0]
-    t_open = time.perf_counter() - t0
-    queries = make_query_strings(seg, ns, n_queries, seed_offset=5,
-                                 facet_fmt="/source/{}")
-    t0 = time.perf_counter()
-    direct = ds.search_many(queries, 0, WRITE_PAGE)
-    sync(device)
-    t_cold = time.perf_counter() - t0
-    check_search_many(ds, queries, direct, "served namespace, in process", tag)
-    if 2 * sum(bool(res) for res in direct) < n_queries:
-        fail("served namespace: most of the query strings have no hits")
-    expected = [[(r.id, r.score) for r in res] for res in direct]
-    log(f"served namespace {tag}: {seg.doc_count} docs mounted and opened "
-        f"in {t_open:.1f} s; cold search_many of {n_queries} query strings "
-        f"{t_cold:.2f} s")
-    bodies = [search_body(q, f, ns) for q, f in queries]
-    server = LiveServer(mgr)
-    cuda = device.type == "cuda"
     try:
-        for clients in levels:
-            level = work / f"drive{clients}"
-            drive(level, server.base, bodies, clients, n_requests, 0)
-            before = scrape(server.base)
-            bs.launches = 0
-            ba.launches = 0
-            docs.routes.clear()
-            res = drive(level, server.base, bodies, clients, n_requests,
-                        n_requests)
-            after = scrape(server.base)
-            launches = {"block_scorer": bs.launches, "phase_a": ba.launches}
-            routes = dict(docs.routes)
-            check_responses(res, expected, f"served load, {clients} clients")
-
-            def delta(name):
-                return after.get(name, 0.0) - before.get(name, 0.0)
-
-            stage_ms = {}
-            for stage in LOAD_STAGES:
-                n = delta(f"{stage}_count")
-                stage_ms[stage] = delta(f"{stage}_sum") / n * 1e3 if n else None
-            batches = int(delta("fugu_search_engine_seconds_count"))
-            line = {
-                "phase": "served load", "card": card, "docs": seg.doc_count,
-                "clients": clients, "requests": n_requests,
-                "per_page": WRITE_PAGE, "failed": 0,
-                "qps": n_requests / res["wall_s"], "wall_s": res["wall_s"],
-                "p50_ms": float(np.percentile(res["seconds"], 50)) * 1e3,
-                "p99_ms": float(np.percentile(res["seconds"], 99)) * 1e3,
-                "batches": batches,
-                "mean_batch": n_requests / batches if batches else None,
-                "engine_share_of_wall": (
-                    delta("fugu_search_engine_seconds_sum") / res["wall_s"]),
-                "stage_mean_ms": stage_ms, "launches": launches,
-                "routes": routes,
-            }
-            if cuda:
-                # the device's idle share, from one more pass at this
-                # level under the profiler (kept out of the timed pass)
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    drive(level, server.base, bodies, clients, n_profiled, 0,
-                          during=lambda: record_function("served_level"))
-                    torch.cuda.synchronize()
-                raw = level / "trace.json"
-                prof.export_chrome_trace(str(raw))
-                wall, busy = busy_ms(json.loads(raw.read_text()),
-                                     "served_level")
-                raw.unlink()
-                line.update(profiled_requests=n_profiled,
-                            profiled_wall_ms=wall, device_busy_ms=busy,
-                            device_idle_share=1.0 - busy / wall)
-                if min(launches.values()) <= 0:
-                    fail(f"served load, {clients} clients: launches "
-                         f"{launches}")
+        ds = mgr.get_dataset(ns)
+        seg = ds.docs().segments[0]
+        t_open = time.perf_counter() - t0
+        queries = make_query_strings(seg, ns, n_queries, seed_offset=5,
+                                     facet_fmt="/source/{}")
+        t0 = time.perf_counter()
+        direct = ds.search_many(queries, 0, WRITE_PAGE)
+        sync(device)
+        t_cold = time.perf_counter() - t0
+        check_search_many(ds, queries, direct, "served namespace, in process",
+                          tag)
+        if 2 * sum(bool(res) for res in direct) < n_queries:
+            fail("served namespace: most of the query strings have no hits")
+        expected = [[(r.id, r.score) for r in res] for res in direct]
+        log(f"served namespace {tag}: {seg.doc_count} docs mounted and "
+            f"opened in {t_open:.1f} s; cold search_many of {n_queries} "
+            f"query strings {t_cold:.2f} s")
+        try:
+            lines = live_load.run_levels(mgr, ns, queries, expected, work,
+                                         card, device, levels, n_requests,
+                                         n_profiled)
+        except live_load.LoadError as e:
+            fail(str(e))
+        for line in lines:
             log(json.dumps(line))
-            if not batches or n_requests / batches <= 1:
-                fail(f"served load, {clients} clients: {batches} batches for "
-                     f"{n_requests} requests")
     finally:
-        server.stop()
         mgr.close()
 
 
@@ -2644,6 +2435,13 @@ def main() -> None:
             f"identical and scores bit-identical ({full_err!r}), "
             f"{cuda_ms(lambda: bs.score_rows(*full[0]), 5):.4f} ms")
 
+        # bench's measurement sequence, on the same segment
+        t0 = time.perf_counter()
+        bench_launches = phase_bench(seg, stats, device, tag, card)
+        for k in kernels:
+            k["bench_launches"] = bench_launches[k["name"]]
+        log(f"bench {tag}: phase {time.perf_counter() - t0:.1f} s")
+
         # the sharded phase, on the same segment and index
         t0 = time.perf_counter()
         sharded = phase_sharded(ni, mix, warm, phrases, phrase_warm, device,
@@ -2656,10 +2454,20 @@ def main() -> None:
 
         # the small-segment engine and the routing ladder
         t0 = time.perf_counter()
-        phase_small_engine(device, tag, card, work, big=seg)
+        _lines, ladder = phase_small_engine(device, tag, card, work, big=seg)
         log(f"small-segment engine {tag}: phase {time.perf_counter() - t0:.1f}"
             f" s")
-        del seg
+
+        # the residency drill: copies of the 1M segment and the largest
+        # ladder segment with nothing on the device
+        from fugu_tpu_torch.tools.residency_live import fresh
+
+        big, small = fresh(seg), fresh(ladder[max(ladder)])
+        del seg, ladder, _lines
+        t0 = time.perf_counter()
+        phase_residency(big, small, device, tag, card)
+        log(f"residency {tag}: phase {time.perf_counter() - t0:.1f} s")
+        del big, small
 
         # phase 6: the namespace write path
         written = phase_write_path(device, tag, work / "write")
@@ -2683,7 +2491,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--drive"]:
-        drive_main(Path(sys.argv[2]))
-    else:
-        main()
+    main()

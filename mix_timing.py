@@ -2,7 +2,7 @@
 
     python3 mix_timing.py --namespace DIR [--tree TREE] [--passes 10]
                           [--profile OUT_DIR] [--docs N] [--device cpu]
-                          [--shards N]
+                          [--shards N] [--bench-cache] [--kernels]
 
 Imports ``chip_smoke`` and ``fugu_tpu_torch`` from ``--tree`` (default:
 the directory of this file), so a tree unpacked with ``git archive``
@@ -10,6 +10,9 @@ the directory of this file), so a tree unpacked with ``git archive``
 ``DIR`` holds no namespace yet, it first builds ``chip_smoke``'s seeded
 corpus (bench.py's generator, ``--docs`` docs, 1M by default) and
 commits it there; later runs, from either tree, open the same files.
+With ``--bench-cache`` it mounts ``fugu_tpu_torch.bench``'s cached
+segment of ``--docs`` docs instead (the same corpus, built by bench
+first where the cache lacks it; its files are linked, not copied).
 The namespace is opened with ``NamedIndex`` on the card, the mix runs
 once cold (pack uploads) and ``--passes`` times warm, one
 ``search_topk_batch`` call per limit as in ``chip_smoke.py``.  With
@@ -23,9 +26,16 @@ median.  With ``--profile``, two more warm passes follow: one under
 ``OUT_DIR`` and gives the pass's wall time, the device's busy time (the
 union of its kernel, copy and set intervals inside the pass) and its
 idle share; and one under ``cProfile``, whose top host functions by
-cumulative time are printed.  Run several of these processes one after
-another in one call to compare trees on one card: parent, new, new,
-parent.
+cumulative time are printed.  With ``--kernels``, one more warm pass
+and then ``chip_smoke.make_phrase_batch``'s 256 phrases (a cold pass,
+then a recorded one) give each kernel's launches, its ms over the
+recorded calls (CUDA events), its bound (``chip_smoke``'s cost of each
+call at 3.35 TB/s or 67 TFLOP/s) and, on every call whose plain version
+fits in the card's memory beside the resident packs, its plain
+version's ms and the largest difference from it (``chip_smoke``'s
+comparisons, which fail on a disagreement); one more JSON line.  Run several of these
+processes one after another in one call to compare trees on one card:
+parent, new, new, parent.
 """
 
 from __future__ import annotations
@@ -63,6 +73,83 @@ def busy_ms(trace: dict, name: str):
     return (hi - lo) / 1e3, busy / 1e3
 
 
+def plain_compare(cs, cmp, fk, fp, mod, args):
+    """(max abs err, plain ms, kernel ms) of one recorded call against
+    its plain version, or None where the plain version does not fit in
+    the card's memory (the dense plain phase A at 16M docs, say)."""
+    import torch
+
+    try:
+        return (cmp(args, mod), cs.cuda_ms(lambda: fp(*args), 1),
+                cs.cuda_ms(lambda: fk(*args), 5))
+    except torch.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        return None
+
+
+def kernel_line(cs, ni, run_mix, device) -> dict:
+    """Each kernel's launches, ms, bound and plain comparison over one
+    warm mix pass (phase A, block scorer) and one warm phrase batch
+    (phrase kernel); see the module docstring."""
+    import torch
+
+    from fugu_tpu_torch.ops import batch_scorer as ba
+    from fugu_tpu_torch.ops import block_scorer as bs
+    from fugu_tpu_torch.ops import phrase_stream as ps
+
+    mods = {"block_scorer": bs, "phase_a": ba, "phrase_stream": ps}
+    for mod in mods.values():
+        mod.launches = 0
+    with cs.Recorder(bs, "score_rows") as rec_s, \
+            cs.Recorder(ba, "phasea") as rec_a:
+        run_mix()
+    phrases = cs.make_phrase_batch(ni.segments[0])
+    t0 = time.perf_counter()
+    ni.search_topk_batch(phrases, 10)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    ps.launches = 0
+    routes = dict(ni.routes)
+    with cs.Recorder(ps, "phrase_stream") as rec_p:
+        t0 = time.perf_counter()
+        ni.search_topk_batch(phrases, 10)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+    phrase_routes = {k: v - routes.get(k, 0) for k, v in ni.routes.items()}
+    # the passes' launches, before the comparisons below launch more
+    launched = {name: mod.launches for name, mod in mods.items()}
+    out = {"phrase_batch_cold_s": cold, "phrase_batch_warm_s": warm,
+           "phrase_batch_routes": phrase_routes, "kernels": []}
+    for name, calls, run, plain, cmp, cost in (
+        ("block_scorer", rec_s.calls, "score_rows", "score_rows_plain",
+         cs.compare_scorer, cs.scorer_cost),
+        ("phase_a", rec_a.calls, "phasea", "phasea_plain", cs.compare_phasea,
+         cs.phasea_cost),
+        ("phrase_stream", rec_p.calls, "phrase_stream",
+         "phrase_stream_plain", cs.compare_phrase, cs.phrase_cost),
+    ):
+        mod = mods[name]
+        fk, fp = getattr(mod, run), getattr(mod, plain)
+        compared = [c for c in (plain_compare(cs, cmp, fk, fp, mod, a)
+                                for a in calls) if c is not None]
+        nbytes, ops = (sum(c) for c in zip(*(cost(a) for a in calls))) \
+            if calls else (0, 0)
+        bound_ms = max(nbytes / cs.HBM_BYTES_S, ops / cs.F32_OPS_S) * 1e3
+        out["kernels"].append({
+            "name": name, "launches": launched[name], "calls": len(calls),
+            "ms": sum(cs.cuda_ms(lambda a=a: fk(*a), 5) for a in calls),
+            "bound_ms": bound_ms,
+            "bound_by": ("bytes" if nbytes / cs.HBM_BYTES_S
+                         >= ops / cs.F32_OPS_S else "operations"),
+            "bound_bytes": nbytes, "bound_ops": ops,
+            "compared_calls": len(compared),
+            "max_abs_err": max((c[0] for c in compared), default=None),
+            "plain_ms_compared": sum(c[1] for c in compared),
+            "ms_compared": sum(c[2] for c in compared),
+        })
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--namespace", required=True, type=Path)
@@ -72,6 +159,8 @@ def main() -> None:
     ap.add_argument("--docs", type=int, default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--shards", type=int, default=0)
+    ap.add_argument("--bench-cache", action="store_true")
+    ap.add_argument("--kernels", action="store_true")
     opts = ap.parse_args()
     tree = opts.tree.resolve()
     sys.path.insert(0, str(tree))
@@ -92,6 +181,15 @@ def main() -> None:
     cuda = device.type == "cuda"
     card = cs.card_line() if cuda else "cpu"
     ns = opts.namespace.resolve()
+    if not (ns / "meta.json").exists() and opts.bench_cache:
+        from fugu_tpu_torch import bench
+        from fugu_tpu_torch.tools.live_load import mount
+
+        n = opts.docs or cs.N_DOCS
+        seg_id = f"torchbenchv1{n}"
+        if not (bench.CACHE / f"seg-{seg_id}.npz").exists():
+            bench.build_corpus(n)
+        mount(ns, bench.CACHE, [(seg_id, n)])
     if not (ns / "meta.json").exists():
         ns.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
@@ -157,6 +255,9 @@ def main() -> None:
         pstats.Stats(pr, stream=text).sort_stats("cumulative").print_stats(25)
         cs.log(text.getvalue())
     cs.log(json.dumps(out))
+    if opts.kernels and cuda:
+        cs.log(json.dumps(dict(kernel_line(cs, ni, run_mix, device),
+                               card=card, docs=out["docs"])))
 
 
 if __name__ == "__main__":

@@ -28,6 +28,7 @@ REPO = Path(__file__).resolve().parent.parent
 VERBATIM = [
     "__main__.py",
     "analysis.py",
+    "analysis_extended.py",
     "engine/documents.py",
     "engine/facets.py",
     "engine/highlight.py",

@@ -1,0 +1,265 @@
+"""The port's tools on the CPU: the residency drill evicts at every
+switch and stays exact, ``live_load`` gets every response 200 and equal
+to the in-process answers, ``phrase_cost_validate`` routes as the
+reference's ``want_stream`` does on the same plans and stats, and the
+smoke's bench and residency phases run at a small size without JAX."""
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from fugu_tpu.index.schema import DOCS_SCHEMA as REF_DOCS_SCHEMA
+from fugu_tpu.index.segment import SegmentBuilder as RefSegmentBuilder
+from fugu_tpu.ops import oracle as ref_oracle
+from fugu_tpu.ops import phrase_stream as ref_phrase_stream
+from fugu_tpu_torch import bench
+from fugu_tpu_torch.ops import oracle, residency
+from fugu_tpu_torch.ops import phrase_stream
+from fugu_tpu_torch.tools import live_load, phrase_cost_validate as pcv
+from fugu_tpu_torch.tools import residency_live
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+CPU = torch.device("cpu")
+
+
+@pytest.fixture
+def cache(tmp_path, monkeypatch):
+    """bench's cache in a temporary directory, residency books empty."""
+    monkeypatch.setattr(bench, "CACHE", tmp_path / "cache")
+    monkeypatch.delenv("FUGU_DEVICE_MEM_BUDGET", raising=False)
+    residency.reset_for_test()
+    yield tmp_path / "cache"
+    residency.reset_for_test()
+
+
+def test_residency_drill_evicts_at_every_switch(cache):
+    segs = {"big": bench.build_corpus(5000)[0],
+            "small": bench.build_corpus(1500)[0]}
+    out = residency_live.drill(segs, ("big", "small", "big"), CPU,
+                               headroom_bytes=16 << 10, n_plans=24)
+    assert out["ok"], out["problems"]
+    steps = out["transitions"]
+    assert [t["ns_docs"] for t in steps] == [5000, 1500, 5000]
+    assert all(t["served"] == t["of"] == 24 and t["spot_exact"] == 8
+               for t in steps)
+    ev = [t["evictions"] for t in steps]
+    assert ev[0] == 0 and ev[0] < ev[1] < ev[2]
+    # the budget was pinned just above the big corpus's packs, and the
+    # caller's environment is back as it was
+    assert out["budget_bytes"] == steps[0]["pack_bytes"] + (16 << 10)
+    assert steps[0]["pack_bytes"] == steps[0]["resident_bytes"]
+    assert "FUGU_DEVICE_MEM_BUDGET" not in os.environ
+
+
+def test_residency_drill_reports_a_headroom_that_proves_nothing(cache):
+    segs = {"big": bench.build_corpus(3000)[0],
+            "small": bench.build_corpus(1000)[0]}
+    out = residency_live.drill(segs, ("big", "small", "big"), CPU,
+                               headroom_bytes=1 << 30, n_plans=16)
+    assert not out["ok"]
+    assert any("no eviction" in p for p in out["problems"])
+    assert any("headroom" in p for p in out["problems"])
+
+
+def test_residency_main_on_the_cpu(cache, capsys):
+    rc = residency_live.main(["--big", "3000", "--small", "1000",
+                              "--headroom-mb", "0.01", "--device", "cpu"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and out["ok"] and out["card"] == "cpu"
+    assert {"ok", "problems", "budget_gb", "evictions",
+            "transitions"} <= set(out)
+
+
+def test_live_load_answers_equal_the_in_process_answers(cache, capsys):
+    rc = live_load.main(["--docs", "2000", "--concurrency", "4,16",
+                         "--requests", "64", "--queries", "40",
+                         "--device", "cpu"])
+    lines = [json.loads(s) for s in
+             capsys.readouterr().out.strip().splitlines()]
+    assert rc == 0
+    assert [lv["clients"] for lv in lines] == [4, 16]
+    for lv in lines:
+        assert lv["phase"] == "served load" and lv["failed"] == 0
+        assert lv["requests"] == 64 and lv["mean_batch"] > 1
+        assert set(lv["stage_mean_ms"]) == set(live_load.STAGES)
+    assert not list(cache.glob("live_load_*"))  # the mount was removed
+
+
+def test_live_load_refuses_a_differing_response():
+    res = {"statuses": [200, 200], "seconds": [0.0, 0.0],
+           "texts": ['{"results": [{"id": "d1", "score": 1.5}]}'] * 2}
+    live_load.check_responses(res, [[("d1", 1.5)]], "same")
+    with pytest.raises(live_load.LoadError, match="only 0/2"):
+        live_load.check_responses(res, [[("d2", 1.5)]], "other doc")
+    with pytest.raises(live_load.LoadError, match="not 200"):
+        live_load.check_responses(dict(res, statuses=[200, 503]),
+                                  [[("d1", 1.5)]], "status")
+
+
+def test_live_load_queries_are_the_reference_tools():
+    spec = importlib.util.spec_from_file_location(
+        "ref_live_load", REPO / "tools" / "live_load.py")
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    assert [q for q, _f in live_load.make_queries(64)] == ref.make_queries(
+        1_000_000, 64)
+
+
+def _ref_cost_tool():
+    spec = importlib.util.spec_from_file_location(
+        "ref_phrase_cost_validate", REPO / "tools" / "phrase_cost_validate.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _ref_segment(n_docs, zipf_s, mean_len):
+    """The reference's segment of the cost tool's corpus, the same texts
+    drawn as the reference tool draws them."""
+    rng = np.random.default_rng(11)
+    lens = np.clip(rng.poisson(mean_len, n_docs), 4, 200)
+    b = RefSegmentBuilder(REF_DOCS_SCHEMA)
+    for texts in bench.iter_texts(rng, lens, bench.VOCAB_SIZE, zipf_s):
+        for text in texts:
+            b.add_document({"text": [text]},
+                           stored={"id": f"d{b.doc_count}"})
+    return b.build()
+
+
+@pytest.mark.parametrize("host_ns", [None, 1e7],
+                         ids=["fitted", "host-expensive"])
+@pytest.mark.parametrize("corpus", pcv.CORPORA, ids=lambda c: c[0])
+def test_phrase_cost_routes_as_the_reference(cache, corpus, host_ns,
+                                             monkeypatch):
+    """On each corpus and batch: the same plans, the same two cost
+    estimates and the same ``want_stream`` decision as the reference
+    tool's batches through the reference's router; with the host cost
+    raised on both sides, every batch above the minimum streams."""
+    tag, zipf_s, mean_len = corpus
+    if host_ns is not None:
+        for mod in (phrase_stream, ref_phrase_stream):
+            monkeypatch.setattr(mod, "HOST_NS_PER_MIN_POSTING", host_ns)
+    seg = pcv.build_corpus(tag, 3000, zipf_s, mean_len, cache=cache)
+    ref_seg = _ref_segment(3000, zipf_s, mean_len)
+    stats = oracle.IndexStats([seg])
+    ref_stats = ref_oracle.IndexStats([ref_seg])
+    ref_tool = _ref_cost_tool()
+    decided = []
+    for (name, plans), (ref_name, ref_plans) in zip(
+            pcv.phrase_batches(seg), ref_tool.phrase_batches(ref_seg,
+                                                             ref_stats)):
+        assert name == ref_name
+        assert [repr(p) for p in plans] == [repr(p) for p in ref_plans]
+        got = pcv.decision(plans, stats)
+        assert got["routed_stream"] == ref_phrase_stream.want_stream(
+            len(ref_plans), plans=ref_plans, stats=ref_stats)
+        assert got["host_est_ms"] == ref_phrase_stream.estimate_host_ms(
+            ref_plans, ref_stats)
+        assert got["stream_est_ms"] == ref_phrase_stream.estimate_stream_ms(
+            ref_stats, len(ref_plans))
+        decided.append(got["routed_stream"])
+    assert decided == ([True] * 4 if host_ns else [False] * 4)
+
+
+def test_phrase_cost_main_on_the_cpu(cache, capsys):
+    rc = pcv.main(["--docs", "1500", "--device", "cpu"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == (0 if out["ok"] else 2)
+    assert [(p["corpus"], p["batch"]) for p in out["points"]] == [
+        (c, b) for c in ("home", "flat")
+        for b in ("selective16", "heavy16", "mixed32", "heavy160")]
+    for p in out["points"]:
+        assert p["host_ms"] > 0 and p["stream_ms"] > 0
+        assert p["ok"] == (p["near_crossover"]
+                           or p["routed_stream"] == p["measured_stream_wins"])
+
+
+def test_smoke_bench_and_residency_phases_on_the_cpu(tmp_path):
+    """The smoke's bench phase (bench.run on a 4,000-doc segment: exact
+    order n/n) and its residency phase (a 4,000- and a 1,500-doc segment)
+    in a fresh interpreter, which imports neither JAX, nor fugu_tpu, nor
+    Triton, nor aiohttp."""
+    script = textwrap.dedent(f"""
+        import sys
+        from pathlib import Path
+        import torch
+        import chip_smoke
+        from fugu_tpu_torch import bench
+        from fugu_tpu_torch.ops import oracle
+        from fugu_tpu_torch.tools.residency_live import fresh
+
+        bench.CACHE = Path({str(tmp_path)!r})
+        cpu = torch.device("cpu")
+        big = chip_smoke.build_corpus(4000, 7, 3000)
+        chip_smoke.phase_bench(big, oracle.IndexStats([big]), cpu, "[cpu]",
+                               "cpu", n_passes=1)
+        small = chip_smoke.build_corpus(1500, 8, 3000)
+        # big's own packs from the bench phase stay resident beside the
+        # drill's: they go first, and every switch still evicts
+        chip_smoke.phase_residency(fresh(big), fresh(small), cpu, "[cpu]",
+                                   "cpu", headroom_bytes=16 << 10,
+                                   n_plans=16)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "fugu_tpu",
+                                            "triton", "aiohttp"))
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO), BENCH_QUERIES="32",
+               BENCH_INGEST_DOCS="200", OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout
+    lines = [json.loads(s) for s in proc.stdout.splitlines()
+             if s.startswith("{")]
+    line = next(x for x in lines if "exact_order" in x)
+    assert line["exact_order"] == "32/32"
+    detail = next(x for x in lines if x.get("phase") == "bench")
+    assert detail["class_full"]["phrase"]["routes"]["host"] == 32
+    drill = next(x for x in lines if x.get("phase") == "residency")
+    assert drill["ok"] and [t["ns_docs"] for t in drill["transitions"]] == [
+        4000, 1500, 4000]
+
+
+@pytest.mark.parametrize("tool", ["residency_live", "live_load",
+                                  "phrase_cost_validate"])
+def test_tool_without_a_card_exits_with_an_error_line(tool, tmp_path):
+    """Each tool runs on the card unless asked for the CPU: without CUDA
+    it prints an error line and exits 1, having built nothing."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "-m", f"fugu_tpu_torch.tools.{tool}"],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode == 1, proc.stderr[-2000:]
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert line["ok"] is False and "cuda" in line["error"].lower()
+
+
+def test_new_modules_import_no_jax():
+    script = textwrap.dedent("""
+        import sys
+        import fugu_tpu_torch.analysis_extended
+        import fugu_tpu_torch.bench
+        import fugu_tpu_torch.tools.live_load
+        import fugu_tpu_torch.tools.phrase_cost_validate
+        import fugu_tpu_torch.tools.residency_live
+        print(sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "fugu_tpu", "triton", "aiohttp")))
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(REPO),
+                          env=dict(os.environ, PYTHONPATH=str(REPO)),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == "[]"
