@@ -29,7 +29,16 @@ no CUDA device exists or the checkout is missing.  Phases:
    the port's NumPy oracle bit for bit, and the block scorer and phase
    A must have run.  Then a 256-phrase batch goes through the same
    ``search_topk_batch``: it must be routed to the phrase stream, run
-   the phrase kernel with and without slop, and equal the oracle;
+   the phrase kernel with and without slop, and equal the oracle.  Then
+   the device phrase path (``ops/device_phrase``, torch ops behind the
+   reference's opt-in ``FUGU_DEVICE_PHRASE=1``) on the same segment: the
+   phrase batch and the mix's phrases through ``device_phrase_batch``,
+   every result it returns equal to the host matcher's bit for bit, the
+   same outcome, overflow flag and candidate docs for every plan on the
+   card as on CPU tensors, warm ms in turns against the host matcher
+   and the stream, and the mix through ``search_topk_batch`` with the
+   switch set equal to the oracle-checked results with phrases routed
+   to ``device_phrase`` (one ``{"phase": "device_phrase", ...}`` line);
 5. warm QPS of the mix, the phrase batch's wall time against the host
    matcher's, and each kernel's time against its plain version's and
    its bound (the bytes its calls must move at 3.35 TB/s, or their
@@ -929,6 +938,116 @@ def phase_phrase_batch(ni, seg, stats, tag):
         f"the TPU host; one more pass split into staging and launch / "
         f"device wait / fetch and host verify {split} s")
     return calls, launches, plans, warm
+
+
+def device_phrase_card_vs_cpu(seg, stats, plans, device, name) -> dict:
+    """``plans`` through ``device_phrase_begin`` on ``device`` and on
+    CPU tensors (a copy of ``seg`` with nothing on a device, dropped
+    with its books on return): every plan's outcome, overflow flag and
+    candidate docs must be equal; returns the count of equal candidate
+    lists and of candidate scores whose bits differ."""
+    import gc
+
+    import torch
+
+    from fugu_tpu_torch.ops import device_phrase as dp
+    from fugu_tpu_torch.tools.residency_live import fresh
+
+    host_seg = fresh(seg)
+    on_card = dp.device_phrase_begin(seg, plans, stats, 10, device)
+    on_cpu = dp.device_phrase_begin(host_seg, plans, stats, 10,
+                                    torch.device("cpu"))
+    if on_card.outcome != on_cpu.outcome:
+        fail(f"device phrase, {name}: outcomes differ between the card "
+             f"and CPU tensors")
+    card_c = dp.device_phrase_fetch(on_card)
+    cpu_c = dp.device_phrase_fetch(on_cpu)
+    same = [a[0] == b[0] and a[3] == b[3] and np.array_equal(a[2], b[2])
+            for a, b in zip(card_c, cpu_c)]
+    if len(card_c) != len(cpu_c) or not all(same):
+        fail(f"device phrase, {name}: candidates differ between the card "
+             f"and CPU tensors ({sum(same)}/{len(card_c)} equal)")
+    out = {"candidates_equal_cpu": f"{sum(same)}/{len(card_c)}",
+           "score_bits_differ_cpu": int(sum(
+               np.count_nonzero(a[1].view(np.uint32) != b[1].view(np.uint32))
+               for a, b in zip(card_c, cpu_c)))}
+    del host_seg, on_cpu
+    gc.collect()  # the copy's books go with it
+    return out
+
+
+def phase_device_phrase(ni, seg, stats, mix, run_mix, warm, phrases, device,
+                        tag, card):
+    """The device phrase path (``ops/device_phrase``, the reference's
+    opt-in ``FUGU_DEVICE_PHRASE=1``) on phase 4's segment and index.
+
+    The 256-phrase batch and the mix's phrase plans go through
+    ``device_phrase_batch`` on the card
+    (``tools/device_phrase_ab.compare``): every result it returns must
+    equal the host matcher's bit for bit; it prints the plans staged and
+    declined by reason, the positions' bytes and upload seconds, and
+    warm ms in turns of the device phrase path, the host matcher and the
+    stream.  The same plans through ``device_phrase_begin`` on CPU
+    tensors (a copy of the segment with nothing on a device) must give
+    each plan the same outcome and overflow flag and the same candidate
+    docs.  Then the mix through ``search_topk_batch`` with the switch
+    set must equal phase 4's oracle-checked results and route phrases to
+    ``device_phrase``; 2 passes with the switch and 2 without, in turns.
+    One JSON line."""
+    from fugu_tpu_torch.ops import device_phrase as dp
+    from fugu_tpu_torch.ops import residency
+    from fugu_tpu_torch.tools.device_phrase_ab import Mismatch, compare
+
+    t0 = time.perf_counter()
+    line = {"phase": "device_phrase", "card": card}
+    sets = (("batch", phrases),
+            ("mix_phrases", [p for cls, p, _l in mix if cls == "phrase"]))
+    for name, plans in sets:
+        try:
+            line[name] = compare(seg, stats, plans, device)
+        except Mismatch as e:
+            fail(f"device phrase, {name}: {e}")
+        line[name].update(device_phrase_card_vs_cpu(seg, stats, plans,
+                                                    device, name))
+
+    def mix_pass(switch: bool):
+        if switch:
+            os.environ[dp.SWITCH] = "1"
+        try:
+            t1 = time.perf_counter()
+            out = run_mix()
+            return out, time.perf_counter() - t1
+        finally:
+            os.environ.pop(dp.SWITCH, None)
+
+    ni.routes.clear()
+    got, _t = mix_pass(True)
+    routes = dict(ni.routes)
+    n_ok = sum(hits_key((h.score, h.doc) for h in g)
+               == hits_key((h.score, h.doc) for h in w)
+               for g, w in zip(got, warm))
+    if n_ok != len(mix) or routes.get("device_phrase", 0) <= 0:
+        fail(f"device phrase: the mix with {dp.SWITCH}=1 gave {n_ok}/"
+             f"{len(mix)} of phase 4's results, routes {routes}")
+    turns = {True: [], False: []}
+    for switch in (False, True, True, False):
+        turns[switch].append(mix_pass(switch)[1])
+    line["mix"] = {"exact": f"{n_ok}/{len(mix)}", "routes": routes,
+                   "switch_on_s": turns[True], "switch_off_s": turns[False]}
+    # the positions leave the books, so that the later phases find them
+    # as they were before this one
+    residency.unregister_prefix(("pos", id(seg)))
+    object.__setattr__(seg, "_device_pos", None)
+    line["seconds"] = time.perf_counter() - t0
+    log(json.dumps(line))
+    batch = line["batch"]
+    log(f"device phrase {tag}: batch {batch['staged']} staged, outcomes "
+        f"{batch['outcome']}, {batch['exact']} exact; warm ms device phrase "
+        f"{batch['device_phrase_median_ms']:.1f}, with the host matcher "
+        f"for the rest {batch['device_phrase_route_median_ms']:.1f}, host "
+        f"matcher {batch['host_median_ms']:.1f}, stream "
+        f"{batch['stream_median_ms']:.1f}; mix with the switch {n_ok}/"
+        f"{len(mix)}, routes {routes}; phase {line['seconds']:.1f} s")
 
 
 # -- bench and the residency drill ---------------------------------------------
@@ -2363,6 +2482,10 @@ def main() -> None:
         calls_p, p_launches, phrases, phrase_warm = phase_phrase_batch(
             ni, seg, stats, tag)
         launches["phrase_stream"] = p_launches
+
+        # the device phrase path behind the reference's opt-in switch
+        phase_device_phrase(ni, seg, stats, mix, run_mix, warm, phrases,
+                            device, tag, card)
 
         # phase 5: kernel vs plain time and bound at the main path's shapes
         kernels = []

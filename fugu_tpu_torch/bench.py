@@ -31,9 +31,9 @@ plans phase A declines (``ops/block_scorer.block_search_begin`` /
 ``collect``, grouped by limit), the phrase stream
 (``ops/phrase_stream``) where ``want_stream`` with its overlap credit
 sends the phrases, the host matcher on a worker thread otherwise, and
-``search_blockmax`` then the oracle for what is left.  ``bench.py``'s
-``FUGU_DEVICE_PHRASE=1`` branch is left out: ``ops/device_phrase.py``
-is not ported.
+``search_blockmax`` then the oracle for what is left.  With
+``FUGU_DEVICE_PHRASE=1``, as in ``bench.py``, the phrases the stream
+declines go to ``ops/device_phrase`` first.
 
 Progress and one more JSON line of details (the card, build seconds,
 pack bytes against the residency budget, cold pass, routes and kernel
@@ -317,7 +317,9 @@ def device_run(seg, stats, mix, device, routes: dict = None):
     docstring); [(score, doc)] per query.  Host-only plans (phrases)
     that the router keeps run on a worker thread while the device works.
     ``routes``, when given, counts the plans each part answered
-    ("phase_a", "block_scorer", "phrase_stream", "host")."""
+    ("phase_a", "block_scorer", "phrase_stream", "host"; with
+    ``FUGU_DEVICE_PHRASE=1`` "device_phrase")."""
+    from fugu_tpu_torch.ops import device_phrase
     from fugu_tpu_torch.ops.batch_scorer import batch_search
     from fugu_tpu_torch.ops.block_scorer import (
         block_search_begin, block_search_collect,
@@ -351,6 +353,16 @@ def device_run(seg, stats, mix, device, routes: dict = None):
         covered = {qi for qi, _ in staged} | {
             j for j, r in enumerate(pre) if r is not None}
         host_is = [i for j, i in enumerate(host_is) if j not in covered]
+    phrase_handle = None
+    if host_is and stream_handle is None and device_phrase.enabled():
+        phrase_handle = device_phrase.device_phrase_begin(
+            seg, [plans[i] for i in host_is], stats,
+            max(lims[i] for i in host_is), device)
+        pre, staged = phrase_handle[0], phrase_handle[1]
+        covered = {qi for qi, _ in staged} | {
+            j for j, r in enumerate(pre) if r is not None}
+        host_is = [i for j, i in enumerate(host_is) if j not in covered]
+        count["device_phrase"] = 0
     th = None
     errors = []
     if host_is:
@@ -390,6 +402,12 @@ def device_run(seg, stats, mix, device, routes: dict = None):
                 if r is not None:
                     results[all_host[j]] = r
                     count["phrase_stream"] += 1
+        if phrase_handle is not None:
+            for j, r in enumerate(
+                    device_phrase.device_phrase_collect(phrase_handle)):
+                if r is not None and results[all_host[j]] is None:
+                    results[all_host[j]] = r[: lims[all_host[j]]]
+                    count["device_phrase"] += 1
     finally:
         if th is not None:
             th.join()

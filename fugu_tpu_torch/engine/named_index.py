@@ -29,8 +29,10 @@ phase A declines, then the host chain for the plans both decline by
 design (more than 16 clauses or 32 groups, a nonpositive weight, a limit
 above 128).  Quoted phrases take the phrase stream (ops/phrase_stream)
 where its routing cost model sends them, as the reference's default
-does, and the host matcher otherwise.  Device errors, the device merge's
-included, propagate to the caller; there is no device-to-host fallback.
+does, and the host matcher otherwise; with ``FUGU_DEVICE_PHRASE=1``, the
+reference's opt-in switch, the phrases the stream declines go to
+ops/device_phrase first.  Device errors, the device merge's included,
+propagate to the caller; there is no device-to-host fallback.
 With ``use_device=False`` the index runs the host engines only and
 touches no tensor.
 
@@ -62,6 +64,7 @@ from fugu_tpu_torch.index.manifest import Manifest, load_segment, save_segment, 
 from fugu_tpu_torch.index.merge import MergePlan, merge_segments
 from fugu_tpu_torch.index.schema import REQUIRED_FIELDS, IndexSchema, IndexType, SCHEMAS
 from fugu_tpu_torch.index.segment import Segment, SegmentBuilder
+from fugu_tpu_torch.ops import device_phrase
 from fugu_tpu_torch.ops import oracle as oracle_ops
 from fugu_tpu_torch.query import QueryPlan
 from fugu_tpu_torch.records import ObjectRecord
@@ -208,8 +211,9 @@ class NamedIndex:
         self._sharded_packs: Dict[str, Any] = {}
         self._sharded_bm: Dict[str, Any] = {}
         #: plans answered per engine ("small_segment", "phase_a",
-        #: "block_scorer", "host", "phrase_stream", "host_only"; under a
-        #: mesh "sharded_small", "sharded_phase_a", "sharded_block_scorer"
+        #: "block_scorer", "host", "phrase_stream", "host_only"; with
+        #: FUGU_DEVICE_PHRASE=1 "device_phrase"; under a mesh
+        #: "sharded_small", "sharded_phase_a", "sharded_block_scorer"
         #: and "phrase_stream_sharded") since the index was opened
         self.routes: Dict[str, int] = {}
         #: searches run on several threads at once (the server's executor)
@@ -507,9 +511,21 @@ class NamedIndex:
                 seg, plans, host_only_idx, len(device_idx), stats, limit,
                 mesh,
             ) if host_only_idx and on_device else None
+            phrase_handle = None
+            if (stream_handle is None and host_only_idx and on_device
+                    and device_phrase.enabled()):
+                # the reference's opt-in device phrase path, for what the
+                # stream declined; under a mesh on the unsharded segment
+                # on the mesh's root device
+                phrase_handle = device_phrase.device_phrase_begin(
+                    seg, [plans[i] for i in host_only_idx], stats, limit,
+                    self.device if mesh is None else mesh.root,
+                )
+            handle = (stream_handle if stream_handle is not None
+                      else phrase_handle)
             phrase_host_idx = host_only_idx
-            if stream_handle is not None:
-                pre, staged = stream_handle[0], stream_handle[1]
+            if handle is not None:
+                pre, staged = handle[0], handle[1]
                 covered = {j for j, _pc in staged} | {
                     j for j, r in enumerate(pre) if r is not None
                 }
@@ -559,13 +575,25 @@ class NamedIndex:
                     for j, r in enumerate(collect(stream_handle)):
                         if r is not None:
                             host_map[host_only_idx[j]] = r
+                n_host = len(phrase_host_idx)
+                if phrase_handle is not None:
+                    # declined and overflowed plans come back None: the
+                    # host matcher takes them below
+                    phrase_res = device_phrase.device_phrase_collect(
+                        phrase_handle)
+                    for j, r in enumerate(phrase_res):
+                        if r is not None:
+                            host_map[host_only_idx[j]] = r
+                    n_host = sum(r is None for r in phrase_res)
             finally:
                 if host_thread is not None:
                     host_thread.join()
             streamed = ("phrase_stream" if mesh is None
                         else "phrase_stream_sharded")
-            counts[streamed] = len(host_only_idx) - len(phrase_host_idx)
-            counts["host_only"] = len(phrase_host_idx)
+            counts[streamed] = 0
+            counts["device_phrase" if phrase_handle is not None
+                   else streamed] = len(host_only_idx) - n_host
+            counts["host_only"] = n_host
             self._count_routes(counts)
             for i in runnable:
                 res = res_map.get(i)

@@ -547,6 +547,7 @@ class Segment:
             for kind in ("entry", "bm"):
                 residency.unregister((kind, id(self)))
             residency.unregister_prefix(("tok", id(self)))
+            residency.unregister_prefix(("pos", id(self)))
         return int(fresh.sum())
 
     # -- device --------------------------------------------------------------

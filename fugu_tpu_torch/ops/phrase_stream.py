@@ -43,8 +43,11 @@ with the exact PhraseMatcher (ops/phrase.py) so final scores stay
 bit-identical to the oracle.
 
 Routing is the reference's default ``auto`` mode and only that: the
-port reads no environment variable to route phrases (the carried
-docstrings that name ``FUGU_PHRASE_STREAM`` describe the reference).
+port takes neither ``FUGU_PHRASE_STREAM`` nor ``FUGU_ENGINE`` (the
+carried docstrings that name them describe the reference).  The one
+environment switch on the phrase path is the reference's opt-in
+``FUGU_DEVICE_PHRASE=1``, which sends what the stream declines to
+``ops/device_phrase`` (``engine/named_index.py``, ``bench.py``).
 The cost model's constants were fitted on the TPU host and are starting
 values on the GPU.
 

@@ -20,8 +20,10 @@ once cold (pack uploads) and ``--passes`` times warm, one
 ``N``-shard mesh on the same device.
 
 It prints one JSON line: the tree, the card, the cold seconds, every
-warm pass's seconds, their median, min and max, and the QPS of the
-median.  With ``--profile``, two more warm passes follow: one under
+warm pass's seconds, their median, min and max, the QPS of the median,
+and the plans per route over the warm passes (``NamedIndex.routes``;
+with ``FUGU_DEVICE_PHRASE=1`` in the environment the phrases the stream
+declines route to ``device_phrase``).  With ``--profile``, two more warm passes follow: one under
 ``torch.profiler``, whose trace (gzipped chrome JSON) goes to
 ``OUT_DIR`` and gives the pass's wall time, the device's busy time (the
 union of its kernel, copy and set intervals inside the pass) and its
@@ -218,6 +220,7 @@ def main() -> None:
     t0 = time.perf_counter()
     run_mix()
     cold = time.perf_counter() - t0
+    ni.routes.clear()
     passes = []
     for _ in range(opts.passes):
         t0 = time.perf_counter()
@@ -229,6 +232,7 @@ def main() -> None:
         "shards": opts.shards,
         "cold_s": cold, "passes_s": passes, "median_s": med,
         "min_s": min(passes), "max_s": max(passes), "qps": len(mix) / med,
+        "routes": dict(ni.routes),
     }
     if opts.profile is not None:
         from torch.profiler import ProfilerActivity, profile, record_function

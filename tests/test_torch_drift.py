@@ -92,6 +92,8 @@ REWRITTEN = {
         # doc-major blocks and their per-doc offsets for the phase-A
         # kernel; pack_block_major itself stays verbatim
         "BlockMajorPack", "block_doc_offsets",
+        # a delete also drops the device phrase path's reserved positions
+        "Segment.delete_by_term",
     },
     # the code is the reference's (SAME_CODE below); the docstrings that
     # quoted the TPU's division and compile times say what holds on the
@@ -245,3 +247,44 @@ def test_named_index_carried_method_matches_reference(method):
                     "NamedIndex")
     ref = _methods(_renamed(module), "NamedIndex")
     assert port[method] == ref[method]
+
+
+#: modules the port writes anew that carry named definitions of a
+#: reference module: port module -> (reference source, definitions).
+#: Each definition's syntax tree must equal the reference's (comments
+#: that quoted the TPU's timings are rewritten)
+CARRIED_DEFINITIONS = {
+    "fugu_tpu_torch/ops/device_phrase.py": (
+        "fugu_tpu/ops/device_phrase.py",
+        ["_phrase_clause", "_exact_phrase_rescore", "_SHIFT", "_POS_CAP",
+         "_COMMON_CAP", "_PPOS_PAD", "_PAD_LADDER", "_INT_MAX"],
+    ),
+    "fugu_tpu_torch/tools/phrase_eligibility.py": (
+        "tools/phrase_eligibility.py", ["make_phrase_mix"],
+    ),
+}
+
+
+def _definitions(source: str) -> dict:
+    """name -> ast.dump of each top-level function, class or assignment."""
+    out = {}
+    for node in ast.parse(source).body:
+        if isinstance(node, FUNCS + (ast.ClassDef,)):
+            out[node.name] = ast.dump(node)
+        elif isinstance(node, ast.Assign):
+            for t in node.targets:
+                if isinstance(t, ast.Name):
+                    out[t.id] = ast.dump(node)
+    return out
+
+
+@pytest.mark.parametrize(
+    "module,name",
+    [(m, n) for m, (_r, names) in sorted(CARRIED_DEFINITIONS.items())
+     for n in names])
+def test_carried_definition_matches_reference(module, name):
+    ref_path, _names = CARRIED_DEFINITIONS[module]
+    ref = (REPO / ref_path).read_text()
+    ref = re.sub(r"\bfugu_tpu\b", "fugu_tpu_torch", ref)
+    port = _definitions((REPO / module).read_text())
+    assert port[name] == _definitions(ref)[name]

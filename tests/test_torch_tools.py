@@ -23,8 +23,13 @@ from fugu_tpu.ops import phrase_stream as ref_phrase_stream
 from fugu_tpu_torch import bench
 from fugu_tpu_torch.ops import oracle, residency
 from fugu_tpu_torch.ops import phrase_stream
+from fugu_tpu_torch.engine import named_index
+from fugu_tpu_torch.engine.named_index import NamedIndex
+from fugu_tpu_torch.index.manifest import Manifest, save_segment
+from fugu_tpu_torch.index.schema import IndexType
+from fugu_tpu_torch.tools import dump_oracle_golden, phrase_eligibility
 from fugu_tpu_torch.tools import live_load, phrase_cost_validate as pcv
-from fugu_tpu_torch.tools import residency_live
+from fugu_tpu_torch.tools import residency_live, slop_ab
 
 torch.set_num_threads(1)
 
@@ -233,7 +238,8 @@ def test_smoke_bench_and_residency_phases_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("tool", ["residency_live", "live_load",
-                                  "phrase_cost_validate"])
+                                  "phrase_cost_validate", "slop_ab",
+                                  "device_phrase_ab"])
 def test_tool_without_a_card_exits_with_an_error_line(tool, tmp_path):
     """Each tool runs on the card unless asked for the CPU: without CUDA
     it prints an error line and exits 1, having built nothing."""
@@ -263,3 +269,129 @@ def test_new_modules_import_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip() == "[]"
+
+
+def _ref_tool(name):
+    spec = importlib.util.spec_from_file_location(
+        f"ref_{name}", REPO / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_phrase_eligibility_line_equals_the_reference_tools(capsys):
+    """The same 256 query strings, and the same JSON line from the
+    port's parser and stream eligibility as from the reference's."""
+    ref = _ref_tool("phrase_eligibility")
+    assert phrase_eligibility.make_phrase_mix() == ref.make_phrase_mix()
+    ref.main()
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert phrase_eligibility.main([]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got == want
+    assert got["n_phrase_plans"] == 256 and got["classes"]["stream"] > 0
+
+
+def test_slop_ab_on_the_cpu(cache, capsys):
+    """192 slop-1/2 phrases through the phrase stream (its plain kernel
+    on CPU tensors) and the host matcher on a 2,000-doc corpus: parity
+    192/192, the reference tool's line and a JSON line."""
+    assert slop_ab.main(["--docs", "2000", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-2].startswith("slop-heavy 192 phrases @2000 docs: stream ")
+    assert lines[-2].endswith("parity 192/192")
+    out = json.loads(lines[-1])
+    assert out["ok"] and out["parity"] == out["plans"] == 192
+    assert len(out["stream_s"]) == len(out["host_s"]) == 3
+    clauses = [phrase_stream.eligible_phrase(p) for p in slop_ab.slop_plans()]
+    assert all(c is not None and c.slop in (1, 2) for c in clauses)
+
+
+GOLDEN = REPO / "tests" / "golden" / "oracle_golden.json"
+
+
+def test_dump_oracle_golden_equals_the_committed_fixture(tmp_path):
+    """The port's oracle over the golden corpus and queries writes
+    ``results`` equal bit for bit to the reference tool's fixture, in
+    its schema; the fixture itself is not written."""
+    before = GOLDEN.read_bytes()
+    out = tmp_path / "golden.json"
+    assert dump_oracle_golden.main(["--out", str(out)]) == 0
+    got = json.loads(out.read_text())
+    want = json.loads(before)
+    assert got["results"] == want["results"]
+    assert set(got) == set(want) and got["limit"] == want["limit"] == 30
+    assert GOLDEN.read_bytes() == before
+
+
+@pytest.mark.parametrize("switch", [None, "1"],
+                         ids=["default", "device_phrase"])
+def test_golden_queries_through_named_index_equal_the_fixture(
+        tmp_path, monkeypatch, switch):
+    """The golden corpus as a namespace of the port, every golden query
+    through ``NamedIndex.search_topk_batch`` on CPU tensors (the device
+    stack: ``DEVICE_MIN_ENTRIES`` lowered to 1), with and without
+    ``FUGU_DEVICE_PHRASE=1``: ids and f32 score bits equal the fixture."""
+    monkeypatch.setattr(named_index, "DEVICE_MIN_ENTRIES", 1)
+    if switch:
+        monkeypatch.setenv("FUGU_DEVICE_PHRASE", switch)
+    else:
+        monkeypatch.delenv("FUGU_DEVICE_PHRASE", raising=False)
+    golden = json.loads(GOLDEN.read_text())
+    corpus = json.loads((GOLDEN.parent / "corpus.json").read_text())
+    seg = dump_oracle_golden.golden_segment(corpus)
+    seg.segment_id = "golden"
+    save_segment(seg, tmp_path)
+    Manifest(tmp_path).commit([seg])
+    ni = NamedIndex("golden", tmp_path, IndexType.DOCS, device="cpu")
+    queries = [q for q, r in golden["results"].items() if r is not None]
+    hits = ni.search_topk_batch([dump_oracle_golden.parse(q)
+                                 for q in queries], golden["limit"])
+    seg = ni.segments[0]
+    for q, hs in zip(queries, hits):
+        got = [[seg.stored[h.doc]["id"],
+                int(np.float32(h.score).view(np.uint32))] for h in hs]
+        assert got == golden["results"][q], q
+    device_routes = {k: v for k, v in ni.routes.items()
+                     if k not in ("host", "host_only") and v}
+    assert device_routes.get("small_segment", 0) > 0
+    assert bool(device_routes.get("device_phrase")) == bool(switch)
+
+
+def test_the_tools_import_no_jax():
+    script = textwrap.dedent("""
+        import sys
+        import fugu_tpu_torch.tools.device_phrase_ab
+        import fugu_tpu_torch.tools.dump_oracle_golden
+        import fugu_tpu_torch.tools.phrase_eligibility
+        import fugu_tpu_torch.tools.slop_ab
+        print(sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "fugu_tpu", "triton", "aiohttp")))
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(REPO),
+                          env=dict(os.environ, PYTHONPATH=str(REPO)),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == "[]"
+
+
+def test_device_phrase_ab_main_on_the_cpu(cache, capsys, monkeypatch):
+    """The device phrase A/B on CPU tensors at 2,000 docs, with 16 of
+    the smoke's phrase batch (8 of them sloppy): one JSON line, every
+    staged plan exact, the stream and the host matcher in turns; the
+    profile and the bound only on the card."""
+    import chip_smoke
+    from fugu_tpu_torch.tools import device_phrase_ab
+
+    full = chip_smoke.make_phrase_batch
+    monkeypatch.setattr(chip_smoke, "make_phrase_batch",
+                        lambda seg: full(seg)[:8] + full(seg)[-8:])
+    rc = device_phrase_ab.main(["--docs", "2000", "--device", "cpu",
+                                "--reps", "1"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and out["ok"] and out["card"] == "cpu"
+    batch = out["batch"]
+    assert batch["plans"] == 16 and batch["outcome"]["ineligible"] == 8
+    assert batch["exact"] == batch["answered"] == batch["staged"] > 0
+    assert len(batch["stream_ms"]) == len(batch["host_ms"]) == 1
+    assert out["mix_phrases"]["plans"] > 0 and "bound_ms" not in batch
