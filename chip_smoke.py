@@ -44,6 +44,14 @@ no CUDA device exists or the checkout is missing.  Phases:
    its bound (the bytes its calls must move at 3.35 TB/s, or their
    operations at 67 TFLOP/s f32, whichever is longer), replaying the
    calls the main path made; each block-scorer launch's time and shape;
+   the pack builders in doc ranges: on a copy of the 1M segment the
+   block-major pack and the token stream built in ``RANGED_DOCS``-doc
+   ranges (16 ranges) and the entry pack in ``BUILD_RANGE_ENTRIES``
+   steps, each against the whole-segment build uploaded (every device
+   tensor equal), the build seconds and host peaks of both on a line
+   of their own (``{"phase": "ranged_build", ...}``), and the main
+   path's recorded calls of each kernel over the ranged packs against
+   the plain versions;
    the block scorer once more on a row over every block of the 1M
    segment; then the small-segment engine (``ops/scoring.py``, torch
    ops on the card).  Its routing ladder first: on segments of 8,192,
@@ -229,6 +237,8 @@ SMALL_ULPS = 2
 SHARDS = 4
 SHARDED_2D_PLANS = 64
 SHARDED_SERVE_QUERIES = 64
+#: the ranged-build phase: docs per build range (16 ranges at 1M docs)
+RANGED_DOCS = 65_536
 #: the check segment's doc that spans several 2048-row stream chunks
 LONG_PAIR = ("t00005", "t00007")
 LONG_DOC = " ".join([" ".join(LONG_PAIR)] * 1500)
@@ -1048,6 +1058,177 @@ def phase_device_phrase(ni, seg, stats, mix, run_mix, warm, phrases, device,
         f"matcher {batch['host_median_ms']:.1f}, stream "
         f"{batch['stream_median_ms']:.1f}; mix with the switch {n_ok}/"
         f"{len(mix)}, routes {routes}; phase {line['seconds']:.1f} s")
+
+
+# -- the pack builders in doc ranges -------------------------------------------
+
+
+class HostPeak:
+    """The peak of this process's resident memory inside a ``with``
+    block, above its level at entry: ``mib`` after the block, and ``by``
+    how it was read.  Where the kernel lets a process reset its peak
+    mark (``/proc/self/clear_refs``), the mark (``VmHWM``) after the
+    block ("VmHWM"); elsewhere the most of ``VmRSS`` sampled by a thread
+    every half millisecond ("sampled")."""
+
+    def _rss_kib(self) -> int:
+        pages = int(Path("/proc/self/statm").read_text().split()[1])
+        return pages * os.sysconf("SC_PAGE_SIZE") // 1024
+
+    def _sample(self):
+        while not self._stop.wait(0.0005):
+            self._most = max(self._most, self._rss_kib())
+
+    def __enter__(self):
+        import threading
+
+        try:
+            Path("/proc/self/clear_refs").write_text("5")
+            self.by = "VmHWM"
+        except OSError:
+            self.by = "sampled"
+        self._base = self._most = self._rss_kib()
+        if self.by == "sampled":
+            self._stop = threading.Event()
+            self._thread = threading.Thread(target=self._sample, daemon=True)
+            self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        if self.by == "sampled":
+            self._stop.set()
+            self._thread.join()
+            peak = max(self._most, self._rss_kib())
+        else:
+            text = Path("/proc/self/status").read_text()
+            peak = int(text.split("VmHWM:", 1)[1].split()[0])
+        self.mib = (peak - self._base) / 1024
+
+
+def measured_build(fn):
+    """(result, seconds, HostPeak) of ``fn()``, synchronised with the
+    card."""
+    import torch
+
+    with HostPeak() as peak:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return out, secs, peak
+
+
+def phase_ranged_build(seg, stats, device, calls_s, calls_a, calls_p, tag):
+    """The pack builders in doc ranges on phase 4's segment: the
+    block-major pack and the token stream built in RANGED_DOCS-doc ranges
+    and whole (the host arrays of ``pack_block_major`` +
+    ``block_doc_offsets`` and of ``build_stream_arrays`` +
+    ``stream_doc_rows``, uploaded), and the entry pack of a copy of the
+    segment against the whole upload; every device tensor must be equal.
+    Then the main path's recorded calls of each kernel run over the
+    ranged packs against the plain versions.  Returns each kernel's max
+    abs error and the phase's JSON line."""
+    import torch
+
+    from fugu_tpu_torch.index import segment as sm
+    from fugu_tpu_torch.ops import batch_scorer as ba
+    from fugu_tpu_torch.ops import block_scorer as bs
+    from fugu_tpu_torch.ops import phrase_stream as ps
+    from fugu_tpu_torch.tools.residency_live import fresh
+
+    n_blocks = (seg.doc_count + sm.BM_BLOCK_DOCS - 1) // sm.BM_BLOCK_DOCS
+    n_ranges = len(sm.build_ranges(n_blocks, RANGED_DOCS))
+
+    def host(a):
+        return torch.from_numpy(np.require(a, requirements="W"))
+
+    def whole_block_major():
+        e = seg.n_entries
+        tid, con, _tid_of, _n = sm.entry_term_contribs(seg, stats)
+        docs, order = torch.sort(host(seg.e_doc[:e]), stable=True)
+        docs = docs.numpy()
+        bm_doc, bm_tid, bm_con, chunk_offs, nb = sm.pack_block_major(
+            docs, host(tid)[order].numpy(), host(con)[order].numpy(),
+            seg.doc_count)
+        offs = sm.block_doc_offsets(docs, chunk_offs, nb)
+        return sm.block_major_from_numpy(bm_doc, bm_tid, bm_con, offs,
+                                         device)
+
+    def whole_stream():
+        arrs = ps.build_stream_arrays(seg, "text", stats)
+        doc_row = ps.stream_doc_rows(seg, "text", arrs.nb_pad)
+        return tuple(torch.from_numpy(a).to(device) for a in (
+            arrs.chunk_offs, doc_row, arrs.pack, arrs.cv, arrs.fid))
+
+    def whole_entry():
+        n_tomb = max((seg.doc_count + 2047) // 2048, 1) * 2048
+        tomb = np.zeros(n_tomb, dtype=np.int32)
+        tomb[:seg.doc_count] = seg.tombstones
+        pack = sm.device_pack_from_numpy(
+            seg.e_doc, seg.e_tf | (seg.e_fid << 24), tomb, device)
+        return pack.e_doc, pack.e_tffid, pack.tomb
+
+    copy = fresh(seg)
+    line = {"phase": "ranged_build", "range_docs": RANGED_DOCS,
+            "ranges": n_ranges, "entry_steps": -(-len(seg.e_tf)
+                                               // sm.BUILD_RANGE_ENTRIES),
+            "seconds": {}, "host_peak_mib": {}}
+    packs = {}
+    peaks = {}
+    for name, fn in (
+        ("block_major_whole", whole_block_major),
+        ("block_major_ranged", lambda: sm.BlockMajorPack(
+            copy, stats, device, range_docs=RANGED_DOCS)),
+        ("token_stream_whole", whole_stream),
+        ("token_stream_ranged", lambda: ps.TokenStreamPack(
+            copy, "text", stats, device, range_docs=RANGED_DOCS)),
+        ("entry_whole", whole_entry),
+        ("entry_ranged", lambda: copy.device_pack(device)),
+    ):
+        packs[name], line["seconds"][name], peaks[name] = measured_build(fn)
+        line["host_peak_mib"][name] = peaks[name].mib
+    line["host_peak_by"] = peaks[name].by
+    bm, tok, ent = (packs["block_major_ranged"],
+                    packs["token_stream_ranged"], packs["entry_ranged"])
+    ranged = {
+        "block_major": (bm.d_doc, bm.d_tid, bm.d_con, bm.d_doc_offs),
+        "token_stream": (tok.d_offs, tok.d_doc_row, tok.d_tok, tok.d_cv,
+                         tok.d_fid),
+        "entry": (ent.e_doc, ent.e_tffid, ent.tomb),
+    }
+    for name, got in ranged.items():
+        for i, (g, w) in enumerate(zip(got, packs[name + "_whole"])):
+            if g.device != w.device or g.dtype != w.dtype or not torch.equal(
+                    g, w):
+                fail(f"ranged {name} pack: tensor {i} differs from the "
+                     f"whole build")
+    del packs
+
+    def swap(args, at, tensors):
+        for i, t in enumerate(tensors):
+            if args[at + i].shape != t.shape:
+                fail(f"ranged pack tensor {i}: shape {tuple(t.shape)}, the "
+                     f"main path's {tuple(args[at + i].shape)}")
+        return args[:at] + tuple(tensors) + args[at + len(tensors):]
+
+    errs = {
+        "block_scorer": max(compare_scorer(swap(a, 9, ranged["entry"]), bs)
+                            for a in calls_s),
+        "phase_a": max(compare_phasea(swap(a, 0, (
+            bm.d_doc_offs, bm.d_doc, bm.d_tid, bm.d_con)), ba)
+            for a in calls_a),
+        "phrase_stream": max(compare_phrase(swap(
+            a, 0, ranged["token_stream"]), ps) for a in calls_p),
+    }
+    line["equal"] = True
+    line["kernel_max_abs_err"] = errs
+    log(f"ranged build {tag}: {n_ranges} ranges of {RANGED_DOCS} docs, "
+        f"every device tensor equal to the whole build's; the main path's "
+        f"{len(calls_s)} block-scorer, {len(calls_a)} phase-A and "
+        f"{len(calls_p)} phrase-kernel calls over the ranged packs matched "
+        f"their plain versions {errs}")
+    log(json.dumps(line))
+    return errs
 
 
 # -- bench and the residency drill ---------------------------------------------
@@ -2540,6 +2721,14 @@ def main() -> None:
         for k, check_err in zip(kernels, (scorer_err, phasea_err,
                                           phrase_err)):
             k["max_abs_err"] = max(k["max_abs_err"], check_err)
+
+        # the pack builders in doc ranges, and the kernels over their packs
+        t0 = time.perf_counter()
+        ranged_errs = phase_ranged_build(seg, stats, device, calls_s, calls_a,
+                                         calls_p, tag)
+        for k in kernels:
+            k["max_abs_err"] = max(k["max_abs_err"], ranged_errs[k["name"]])
+        log(f"ranged build {tag}: phase {time.perf_counter() - t0:.1f} s")
 
         # the block scorer on a row over every block of the segment
         text = seg.terms["text"]

@@ -583,6 +583,8 @@ class Segment:
         ``device``.  The block scorer reads postings by exact range, so
         the host arrays travel unpadded; only the flags are padded to
         whole 2048-doc blocks."""
+        import torch
+
         from fugu_tpu_torch.ops import residency
 
         # capture a local: a residency eviction from another thread's
@@ -593,18 +595,27 @@ class Segment:
             # tf and fieldnorm-id travel PACKED in one int32 (tf in the
             # low 24 bits — text caps at 10k chars so tf < 2^24 — fid in
             # the high 8): a third less posting bandwidth per entry.
-            e_tffid = self.e_tf | (self.e_fid << 24)
+            # Packed BUILD_RANGE_ENTRIES entries at a time straight into
+            # the device tensor, so the host holds no full-length copy
+            n = len(self.e_tf)
+            tffid_bytes = n * np.result_type(self.e_tf, self.e_fid).itemsize
             n_blocks = max((self.doc_count + 2047) // 2048, 1)
             tomb = np.zeros(n_blocks * 2048, dtype=np.int32)
             tomb[: self.doc_count] = self.tombstones
             residency.reserve(
                 ("entry", id(self)),
-                self.e_doc.nbytes + e_tffid.nbytes + tomb.nbytes,
+                self.e_doc.nbytes + tffid_bytes + tomb.nbytes,
                 self,
                 _evict_entry_pack,
                 kind="entry",
             )
-            pack = device_pack_from_numpy(self.e_doc, e_tffid, tomb, device)
+            e_tffid = torch.empty(n, dtype=torch.int32, device=device)
+            for a in range(0, n, BUILD_RANGE_ENTRIES):
+                b = a + BUILD_RANGE_ENTRIES
+                e_tffid[a:b].copy_(torch.from_numpy(_i32(
+                    self.e_tf[a:b] | (self.e_fid[a:b] << 24))))
+            pack = EntryPack(torch.from_numpy(_i32(self.e_doc)).to(device),
+                             e_tffid, torch.from_numpy(tomb).to(device))
             self._device_pack = pack
             # close the reserve()->assign window: a concurrent thread's
             # reserve may have evicted THIS key in between, after which
@@ -617,12 +628,20 @@ class Segment:
 
 
 #: block-major pack constants (ops/batch_scorer phase A): docs per block
-#: and entries per DMA chunk (1024-aligned starts are a Mosaic rule).
-#: 512 measured best on the 1M bench mix: 256 halves the doc-scatter
-#: matmul but doubles the grid steps / per-block DMA+padding overhead
-#: and lost ~30% end-to-end (230 vs 308 QPS)
+#: and entries per chunk, each block's run padded to whole chunks.  Both
+#: are the reference's; the phase-A kernel, the token stream's chunk
+#: overlap and the per-doc offsets are laid out on them, and neither has
+#: been refitted on the card
 BM_BLOCK_DOCS = 512
 BM_CHUNK = 2048
+
+#: docs per range of the pack builders (whole BM_BLOCK_DOCS blocks):
+#: BlockMajorPack and the token stream (ops/phrase_stream) build and
+#: upload one range at a time, so the host holds one range's
+#: temporaries, not the segment's
+BUILD_RANGE_DOCS = 1 << 20
+#: entries per step of the builders' passes over every entry
+BUILD_RANGE_ENTRIES = 1 << 24
 
 
 def entry_term_contribs(segment: "Segment", stats):
@@ -733,47 +752,175 @@ class BlockMajorPack:
     are contiguous, in ascending doc order, and ``doc_offs``
     (:func:`block_doc_offsets`) says where each doc starts, so a warp of
     the phase-A kernel can own a run of docs.
+
+    Built one range of ``range_docs`` docs at a time (whole blocks): a
+    block's run and its ``doc_offs`` row depend on that block's entries
+    only, so each range is laid out by :func:`pack_block_major` and
+    :func:`block_doc_offsets` at its first chunk, copied into the device
+    tensors (allocated once at their final sizes) and dropped before
+    the next.  The pack equals the whole-segment build bit for bit.
     """
 
-    def __init__(self, segment: "Segment", stats, device):
+    def __init__(self, segment: "Segment", stats, device,
+                 range_docs: int = BUILD_RANGE_DOCS):
         import torch
 
         from fugu_tpu_torch.ops import residency
 
         e = segment.n_entries
-        tid_entry, contrib, self.tid_of, self.n_terms = entry_term_contribs(
-            segment, stats
-        )
-        # a stable pre-sort by doc, which pack_block_major's stable sort
-        # by block keeps: doc-major blocks, each doc's entries in term
-        # order (torch's threaded sort and gathers: a few times numpy's
-        # speed on the host)
-        def host(a):
-            return torch.from_numpy(np.require(a, requirements="W"))
-
-        docs, order = torch.sort(host(segment.e_doc[:e]), stable=True)
-        docs = docs.numpy()
-        bm_doc, bm_tid, bm_con, self.chunk_offs, self.n_blocks = (
-            pack_block_major(docs, host(tid_entry)[order].numpy(),
-                             host(contrib)[order].numpy(), segment.doc_count)
-        )
-        self.doc_offs = block_doc_offsets(docs, self.chunk_offs,
-                                          self.n_blocks)
+        table = _TermTable(segment, stats)
+        self.tid_of, self.n_terms = table.tid_of, table.n_terms
+        nb = self.n_blocks = max(
+            (segment.doc_count + BM_BLOCK_DOCS - 1) // BM_BLOCK_DOCS, 1)
+        ranges = build_ranges(nb, range_docs)
+        e_doc = segment.e_doc[:e]
+        # first pass: pack_block_major's geometry from per-block counts
+        counts = np.zeros(nb, dtype=np.int64)
+        for a in range(0, e, BUILD_RANGE_ENTRIES):
+            counts += np.bincount(e_doc[a:a + BUILD_RANGE_ENTRIES]
+                                  // BM_BLOCK_DOCS, minlength=nb)
+        out_ends = np.cumsum((counts + BM_CHUNK - 1) // BM_CHUNK * BM_CHUNK)
+        size = _pow2_bucket(max(int(out_ends[-1]), BM_CHUNK))
+        self.chunk_offs = np.concatenate(
+            ([0], out_ends // BM_CHUNK)).astype(np.int32)
+        self.doc_offs = np.empty((nb, BM_BLOCK_DOCS + 1), dtype=np.int32)
+        keys = doc_range_keys(e_doc, len(ranges), range_docs)
         residency.reserve(
             ("bm", id(segment)),
-            bm_doc.nbytes + bm_tid.nbytes + bm_con.nbytes // 2
-            + self.doc_offs.nbytes,
+            size * 4 + size * 4 + size * 4 // 2 + self.doc_offs.nbytes,
             segment,
             _evict_block_major,
             kind="block_major",
         )
         # bf16 contributions: one more rounding, covered by MARGIN_REL's
         # budget (ops/batch_scorer.py), for a third less pack memory
-        self.d_doc, self.d_tid, self.d_con, self.d_doc_offs = (
-            block_major_from_numpy(
-                bm_doc, bm_tid, bm_con, self.doc_offs, device
-            )
-        )
+        self.d_doc = torch.full((size,), -1, dtype=torch.int32, device=device)
+        self.d_tid = torch.full((size,), -1, dtype=torch.int32, device=device)
+        self.d_con = torch.zeros(size, dtype=torch.bfloat16, device=device)
+
+        def host(a):
+            return torch.from_numpy(np.require(a, requirements="W"))
+
+        for r, (blo, bhi) in enumerate(ranges):
+            sel = np.flatnonzero(keys == r)
+            docs = e_doc[sel]
+            tid, con = table.contribs(segment, sel, docs)
+            # a stable sort by doc, which pack_block_major's stable sort
+            # by block keeps: doc-major blocks, each doc's entries in
+            # term order, as the whole segment's stable sort leaves them
+            docs, order = torch.sort(host(docs), stable=True)
+            docs = docs.numpy()
+            del sel
+            # the range's runs from row 0: blocks before blo are empty
+            bm_doc, bm_tid, bm_con, offs, _nb = pack_block_major(
+                docs, host(tid)[order].numpy(), host(con)[order].numpy(),
+                bhi * BM_BLOCK_DOCS)
+            del tid, con, order
+            lo = int(self.chunk_offs[blo]) * BM_CHUNK
+            n = int(self.chunk_offs[bhi]) * BM_CHUNK - lo
+            assert int(offs[bhi]) * BM_CHUNK == n
+            self.d_doc[lo:lo + n].copy_(torch.from_numpy(bm_doc[:n]))
+            self.d_tid[lo:lo + n].copy_(torch.from_numpy(bm_tid[:n]))
+            self.d_con[lo:lo + n].copy_(torch.from_numpy(bm_con[:n]))
+            del bm_doc, bm_tid, bm_con
+            self.doc_offs[blo:bhi] = block_doc_offsets(
+                docs - blo * BM_BLOCK_DOCS, self.chunk_offs[blo:bhi],
+                bhi - blo)
+        self.d_doc_offs = torch.from_numpy(self.doc_offs).to(device)
+
+
+def build_ranges(n_blocks: int, range_docs: int) -> List[Tuple[int, int]]:
+    """[block_lo, block_hi) of each build range over ``n_blocks`` blocks."""
+    if range_docs <= 0 or range_docs % BM_BLOCK_DOCS:
+        raise ValueError(f"range_docs={range_docs} must be a positive "
+                         f"multiple of {BM_BLOCK_DOCS}")
+    step = range_docs // BM_BLOCK_DOCS
+    return [(lo, min(lo + step, n_blocks)) for lo in range(0, n_blocks, step)]
+
+
+def doc_range_keys(docs: np.ndarray, n_ranges: int,
+                   range_docs: int) -> np.ndarray:
+    """Each entry's build range ``doc // range_docs`` in the narrowest
+    unsigned type that holds ``n_ranges - 1`` (a byte an entry at 16M
+    docs), computed BUILD_RANGE_ENTRIES entries at a time."""
+    keys = np.empty(len(docs), dtype=np.min_scalar_type(max(n_ranges - 1, 0)))
+    for a in range(0, len(docs), BUILD_RANGE_ENTRIES):
+        keys[a:a + BUILD_RANGE_ENTRIES] = (
+            docs[a:a + BUILD_RANGE_ENTRIES] // range_docs)
+    return keys
+
+
+def span_values(sel: np.ndarray, starts: np.ndarray, ends: np.ndarray,
+                values: np.ndarray) -> np.ndarray:
+    """For ascending entry indices ``sel``, the value of the span
+    [starts[i], ends[i]) holding each (0 outside every span); the spans
+    are disjoint and sorted by start."""
+    a = np.searchsorted(sel, starts)
+    b = np.searchsorted(sel, ends)
+    gaps = a - np.concatenate(([0], b[:-1]))
+    tail = len(sel) - (int(b[-1]) if len(b) else 0)
+    reps = np.append(np.stack([gaps, b - a], axis=1).reshape(-1), tail)
+    vals = np.append(
+        np.stack([np.zeros_like(values), values], axis=1).reshape(-1), 0)
+    return np.repeat(vals.astype(values.dtype), reps)
+
+
+class _TermTable:
+    """:func:`entry_term_contribs`'s term ids and per-field constants,
+    applied to any ascending subset of the entries: the same arithmetic
+    on the same values, so a range's (tid, contribution) pairs equal the
+    whole segment's at those entries."""
+
+    def __init__(self, segment: "Segment", stats):
+        from fugu_tpu_torch.query import fieldnorm_cache
+
+        self.tid_of: Dict[tuple, int] = {}
+        #: (lo, hi, fieldnorm cache or None for the facet constant)
+        self.fields: List[tuple] = []
+        spans = []
+        gtid = 0
+        for field, tmap in segment.terms.items():
+            if not tmap:
+                continue
+            starts = np.array([i.start for i in tmap.values()], np.int64)
+            dfs = np.array([i.doc_freq for i in tmap.values()], np.int64)
+            ids = np.arange(gtid, gtid + len(starts), dtype=np.int32)
+            spans.append((starts, starts + dfs, ids))
+            for j, term in enumerate(tmap):
+                self.tid_of[(field, term)] = gtid + j
+            cache = (None if field == FACET_FIELD_KEY else
+                     fieldnorm_cache(stats.avg_fieldnorm(field)))
+            self.fields.append(
+                (int(starts.min()), int((starts + dfs).max()), cache))
+            gtid += len(starts)
+        self.n_terms = gtid
+        if spans:
+            starts, ends, ids = (np.concatenate(c) for c in zip(*spans))
+        else:
+            starts = ends = np.zeros(0, np.int64)
+            ids = np.zeros(0, np.int32)
+        order = np.argsort(starts, kind="stable")
+        self.starts, self.ends = starts[order], ends[order]
+        self.ids = ids[order]
+
+    def contribs(self, segment: "Segment", sel: np.ndarray,
+                 docs: np.ndarray):
+        """(tid int32, contribution f32) of the entries ``sel``, whose
+        docs are ``docs``."""
+        tid = span_values(sel, self.starts, self.ends, self.ids)
+        contrib = np.zeros(len(sel), dtype=np.float32)
+        for lo, hi, cache in self.fields:
+            a, b = np.searchsorted(sel, [lo, hi])
+            if cache is None:
+                contrib[a:b] = 1.0  # facet score is the constant idf
+            else:
+                idx = sel[a:b]
+                tf_s = segment.e_tf[idx].astype(np.float32)
+                contrib[a:b] = tf_s / (
+                    tf_s + cache[segment.e_fid[idx].astype(np.int64)])
+        if segment.tombstones.any():
+            contrib[segment.tombstones[docs]] = 0.0
+        return tid, contrib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -783,6 +930,11 @@ class EntryPack:
     e_doc: Any    # int32[E] doc id per entry, sorted within each term
     e_tffid: Any  # int32[E] tf | fid << 24
     tomb: Any     # int32[>= n_blocks * 2048] tombstone flag per doc
+
+
+def _i32(a: np.ndarray) -> np.ndarray:
+    """``a`` as a writable C-contiguous int32 array (no copy if it is one)."""
+    return np.require(a, np.int32, ("C", "W"))
 
 
 def device_pack_from_numpy(e_doc, e_tffid, tomb, device) -> EntryPack:

@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -171,6 +172,7 @@ def _lane_plan(n: int) -> Tuple[int, ...]:
 
 #: kernel launches (not plain-version calls) since process start
 launches = 0
+_launches_lock = threading.Lock()
 
 #: entries per step of the plain version (bounds its [n, lanes] temp)
 _PLAIN_ENTRY_STEP = 1 << 20
@@ -318,7 +320,8 @@ def phasea(doc_offs, doc, tid, con, nz_off, nz, lanes: int, slot_of, nm,
             ctypes.c_void_p(stream),
         )
     cuda_build.check(err, "phase-A launch")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return out
 
 

@@ -26,6 +26,7 @@ scores and order bit-identical to the NumPy oracle.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -54,6 +55,7 @@ _INT_MAX = 2**31 - 1
 
 #: kernel launches (not plain-version calls) since process start
 launches = 0
+_launches_lock = threading.Lock()
 
 
 def _order_keys(scores: torch.Tensor, tiebreak: torch.Tensor) -> torch.Tensor:
@@ -235,7 +237,8 @@ def score_rows(
             ctypes.c_void_p(stream),
         )
     cuda_build.check(err, "block scorer launch")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return out_k, out_d
 
 

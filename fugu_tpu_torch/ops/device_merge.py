@@ -36,6 +36,7 @@ what ``merged.device_pack(device)`` would upload
 
 from __future__ import annotations
 
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -51,6 +52,7 @@ from fugu_tpu_torch.index.segment import (
 
 #: device merges run since process start
 launches = 0
+_launches_lock = threading.Lock()
 
 
 def device_merge_entries(
@@ -70,7 +72,8 @@ def device_merge_entries(
         (plan.out_size,), int(DOC_SENTINEL), dtype=torch.int32, device=device
     )
     out_tffid = torch.zeros(plan.out_size, dtype=torch.int32, device=device)
-    launches += 1
+    with _launches_lock:
+        launches += 1
     n_out = merged.n_entries
     if n_out == 0:
         return out_doc, out_tffid

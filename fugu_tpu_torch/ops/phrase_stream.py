@@ -61,13 +61,23 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from fugu_tpu_torch import cuda_build
-from fugu_tpu_torch.index.segment import BM_BLOCK_DOCS, BM_CHUNK, Segment
+from fugu_tpu_torch.index.segment import (
+    BM_BLOCK_DOCS,
+    BM_CHUNK,
+    BUILD_RANGE_DOCS,
+    BUILD_RANGE_ENTRIES,
+    Segment,
+    build_ranges,
+    doc_range_keys,
+    span_values,
+)
 from fugu_tpu_torch.ops.batch_scorer import (
     BM_FINE_DOCS,
     FINE_PER_BLOCK,
@@ -180,16 +190,16 @@ def estimate_stream_ms(stats, n_phrases: int) -> float:
 
 
 def _stream_fits_budget(stats) -> bool:
-    """False when staging the token-stream pack would blow the HBM
+    """False when staging the token-stream pack would blow the device
     residency budget past what is already resident.
 
-    Matters at 16M docs on a 16GB chip: the phase-A packs alone are
-    ~12.9GB of the 13.6GB auto budget, and the ~4.5GB token pack would
-    evict them — every subsequent mixed batch then re-uploads multi-GB
-    packs over a 10-35MB/s relay (minutes per batch, vs the ~100ms/
-    phrase host cost the eviction was meant to beat).  Auto mode routes
-    to the host instead; ``FUGU_PHRASE_STREAM=1`` still forces the
-    stream for operators with phrase-dominant workloads.  Token bytes
+    It matters where the budget is smaller than the query-path packs
+    plus the token pack: admitting the stream would evict the phase-A
+    and block-scorer packs, and every later mixed batch would upload
+    them again, so phrases stay on the host matcher instead.  On the
+    card's auto budget a 16M-doc corpus's packs and its token stream
+    fit together (the packs are built and uploaded in doc ranges, so
+    the host never holds a whole pack's temporaries).  Token bytes
     already resident (an earlier phrase batch staged them) count as
     free, so a warm phrase-heavy workload keeps streaming.
     """
@@ -255,8 +265,9 @@ def estimate_device_batch_ms(
     want_stream's overlap credit.  Phase A sweeps the same corpus the
     phrase stream does with the same cost shape (fixed dispatch floor +
     per-token sweep + per-query staging/wave cost), so the calibrated
-    stream constants transfer: at 1M docs/44M postings this predicts a
-    256-query mixed batch at ~500ms (round-3 measured 450-530ms).
+    stream constants transfer.  The constants were fitted on the
+    reference's hardware, and the card's kernels run a 1M-doc batch in
+    a few ms, so this overstates the card's batch (and the credit).
 
     ``token_share``: fraction of the index's tokens the concurrent batch
     actually sweeps — multi-segment callers pass the CURRENT segment's
@@ -426,26 +437,64 @@ class TokenStreamPack:
     docstring): ``d_offs`` (chunk offsets per block), ``d_doc_row``
     (each doc's first raw row inside its block), ``d_tok`` (rows),
     ``d_cv`` and ``d_fid`` (per-doc constants) are the kernel's stream
-    operands."""
+    operands.
 
-    def __init__(self, segment: Segment, field: str, stats, device):
-        arrs = build_stream_arrays(segment, field, stats)
-        self.n_blocks = arrs.n_blocks
-        self.nb_pad = arrs.nb_pad
-        self.tid_of = arrs.tid_of
-        self.n_terms = arrs.n_terms
-        self.ok = arrs.ok
-        if not self.ok:
-            return
-        self.chunk_offs = arrs.chunk_offs
-        doc_row = stream_doc_rows(segment, field, arrs.nb_pad)
+    Built one range of ``range_docs`` docs (whole blocks) at a time: a
+    block's rows, chunks, constants and ``doc_row`` row depend on that
+    block's docs only.  A first pass over the field's entries gives each
+    doc's row count, hence every block's chunk count and the final
+    sizes; the device tensors are allocated once, holding the padding
+    :func:`build_stream_arrays` leaves, and each range's part, built by
+    that function's arithmetic from the range's entries alone, is copied
+    to the range's first chunk and block, then dropped.  The tensors
+    equal :func:`build_stream_arrays` and :func:`stream_doc_rows` bit
+    for bit."""
 
+    def __init__(self, segment: Segment, field: str, stats, device,
+                 range_docs: int = BUILD_RANGE_DOCS):
         from fugu_tpu_torch.ops import residency
 
-        self.hbm_bytes = (
-            arrs.pack.nbytes + arrs.cv.nbytes + arrs.fid.nbytes
-            + doc_row.nbytes
-        )
+        offs = segment.pos_offsets[field]
+        data = segment.pos_data[field]
+        base = segment.field_entry_base[field]
+        n_ent = len(offs) - 1
+        doc_count = segment.doc_count
+        nb = self.n_blocks = max(
+            (doc_count + BM_BLOCK_DOCS - 1) // BM_BLOCK_DOCS, 1)
+        nb_pad = self.nb_pad = _nb_pad(nb)
+        tmap = segment.terms[field]
+        self.tid_of = {term: j for j, term in enumerate(tmap)}
+        self.n_terms = len(tmap)
+        self.ok = self.n_terms < TID_MASK  # tid 2^22-1 is the sentinel
+        if not self.ok:
+            return
+        ranges = build_ranges(nb, range_docs)
+        e_docs = segment.e_doc[base : base + n_ent]
+
+        # first pass: each doc's rows (its positions, then KGAP sentinel
+        # rows; none for a doc without a live token), so every block's
+        # chunk count and the final sizes
+        maxpos = np.full(doc_count, -1, dtype=np.int64)
+        for a in range(0, n_ent, BUILD_RANGE_ENTRIES):
+            b = min(a + BUILD_RANGE_ENTRIES, n_ent)
+            ends = offs[a + 1 : b + 1]
+            last = np.where(ends > offs[a:b], data[np.maximum(ends - 1, 0)],
+                            -1)
+            np.maximum.at(maxpos, e_docs[a:b], last.astype(np.int64))
+        has = (maxpos >= 0) & ~segment.tombstones[:doc_count]
+        dlen = np.zeros(nb * BM_BLOCK_DOCS, dtype=np.int64)
+        dlen[:doc_count] = np.where(has, maxpos + 1 + KGAP, 0)
+        del maxpos
+        usable = BM_CHUNK - KGAP
+        blk_len = dlen.reshape(nb, BM_BLOCK_DOCS).sum(axis=1)
+        chunk_offs = np.zeros(nb_pad + 1, dtype=np.int32)
+        np.cumsum((blk_len + usable - 1) // usable, out=chunk_offs[1 : nb + 1])
+        chunk_offs[nb + 1 :] = chunk_offs[nb]
+        self.chunk_offs = chunk_offs
+        size = _pack_rows(int(chunk_offs[nb]))
+        self.hbm_bytes = (size + 2 * nb_pad * 1024
+                          + nb_pad * (BM_BLOCK_DOCS + 1)) * 4
+        keys = doc_range_keys(e_docs, len(ranges), range_docs)
         residency.reserve(
             ("tok", id(segment), field),
             self.hbm_bytes,
@@ -453,10 +502,104 @@ class TokenStreamPack:
             functools.partial(_evict_token_stream, field=field),
             kind="token_stream",
         )
-        self.d_offs, self.d_doc_row, self.d_tok, self.d_cv, self.d_fid = (
-            torch.from_numpy(a).to(device)
-            for a in (arrs.chunk_offs, doc_row, arrs.pack, arrs.cv, arrs.fid)
-        )
+        self.d_offs = torch.from_numpy(chunk_offs).to(device)
+        self.d_doc_row = torch.zeros((nb_pad, BM_BLOCK_DOCS + 1),
+                                     dtype=torch.int32, device=device)
+        self.d_tok = torch.full((size,), int(SENT_ROW), dtype=torch.int32,
+                                device=device)
+        # padded and empty doc slots: cv 1.0 and fid 0, as
+        # build_stream_arrays leaves them
+        self.d_cv = torch.ones(nb_pad * 1024, dtype=torch.float32,
+                               device=device)
+        self.d_fid = torch.zeros(nb_pad * 1024, dtype=torch.int32,
+                                 device=device)
+
+        # per-field term ordinals (the kernel's tid space) by entry span
+        infos = list(tmap.values())
+        t_lo = np.array([i.start - base for i in infos], dtype=np.int64)
+        t_hi = t_lo + np.array([i.doc_freq for i in infos], dtype=np.int64)
+        t_order = np.argsort(t_lo, kind="stable")
+        spans = (t_lo[t_order], t_hi[t_order], t_order)
+        cache = fieldnorm_cache(stats.avg_fieldnorm(field))
+        fieldnorm_ids = segment.fieldnorm_ids[field]
+        for r, (blo, bhi) in enumerate(ranges):
+            dlo = blo * BM_BLOCK_DOCS
+            rows, cv, fid, doc_row = _stream_range(
+                np.flatnonzero(keys == r), e_docs, offs, data, spans,
+                has, dlen[dlo : bhi * BM_BLOCK_DOCS], dlo,
+                min(bhi * BM_BLOCK_DOCS, doc_count) - dlo,
+                cache[fieldnorm_ids[dlo : bhi * BM_BLOCK_DOCS]
+                      .astype(np.int64)],
+                fieldnorm_ids[dlo : bhi * BM_BLOCK_DOCS],
+                chunk_offs[blo : bhi + 1])
+            c0 = int(chunk_offs[blo]) * BM_CHUNK
+            self.d_tok[c0 : c0 + len(rows)].copy_(torch.from_numpy(rows))
+            self.d_cv[blo * 1024 : bhi * 1024].copy_(torch.from_numpy(cv))
+            self.d_fid[blo * 1024 : bhi * 1024].copy_(torch.from_numpy(fid))
+            self.d_doc_row[blo:bhi].copy_(torch.from_numpy(doc_row))
+
+
+def _stream_range(sel, e_docs, offs, data, spans, has, dlen, dlo, n_docs,
+                  cv_docs, fid_docs, chunk_offs):
+    """One build range of :class:`TokenStreamPack`: (pack rows, cv, fid,
+    doc_row) of its blocks, by :func:`build_stream_arrays`'s and
+    :func:`stream_doc_rows`'s arithmetic over the range's entries
+    ``sel`` (ascending field entry indices) and its ``n_docs`` docs from
+    ``dlo``; ``dlen`` holds each doc's row count (whole blocks),
+    ``cv_docs`` and ``fid_docs`` its constants, ``chunk_offs`` the
+    blocks' chunk offsets and the next block's."""
+    nb = len(chunk_offs) - 1
+    row0 = np.zeros(nb * BM_BLOCK_DOCS + 1, dtype=np.int64)
+    np.cumsum(dlen, out=row0[1:])
+
+    docs = e_docs[sel].astype(np.int64)
+    starts = offs[sel].astype(np.int64)
+    klens = (offs[sel + 1] - starts) * has[docs]
+    tids = span_values(sel, *spans)
+    docs -= dlo
+    raw = np.full(max(int(row0[n_docs]), 1), SENT_ROW, dtype=np.int32)
+    total = int(klens.sum())
+    if total:
+        rep_docs = np.repeat(docs, klens)
+        within = np.arange(total, dtype=np.int64) - np.repeat(
+            np.cumsum(klens) - klens, klens)
+        pos = data[np.repeat(starts, klens) + within].astype(np.int64)
+        del within
+        vals = np.repeat(tids, klens) | (
+            (rep_docs % BM_BLOCK_DOCS) << TID_BITS)
+        raw[row0[rep_docs] + pos] = vals.astype(np.int32)
+        del rep_docs, pos, vals
+    del docs, starts, klens, tids
+
+    # the blocks' chunks, each reading BM_CHUNK raw rows from
+    # i * (BM_CHUNK - KGAP) of its block
+    usable = BM_CHUNK - KGAP
+    local = (chunk_offs - chunk_offs[0]).astype(np.int64)
+    n_chunks = int(local[-1])
+    bounds = row0[np.minimum(
+        np.arange(nb + 1, dtype=np.int64) * BM_BLOCK_DOCS, n_docs)]
+    blk_of = np.repeat(np.arange(nb, dtype=np.int64), np.diff(local))
+    src0 = bounds[blk_of] + (
+        np.arange(n_chunks, dtype=np.int64) - local[blk_of]) * usable
+    idx = src0[:, None] + np.arange(BM_CHUNK, dtype=np.int64)[None, :]
+    valid = idx < bounds[blk_of + 1][:, None]
+    rows = np.where(valid, raw[np.where(valid, idx, 0)], SENT_ROW)
+    del idx, valid, raw
+
+    slot = (np.arange(n_docs, dtype=np.int64) // BM_BLOCK_DOCS * 1024
+            + np.arange(n_docs, dtype=np.int64) % BM_BLOCK_DOCS)
+    cv = np.zeros(nb * 1024, dtype=np.float32)
+    cv[slot] = cv_docs[:n_docs]
+    cv[cv == 0.0] = np.float32(1.0)
+    fid = np.zeros(nb * 1024, dtype=np.int32)
+    fid[slot] = fid_docs[:n_docs]
+    doc = np.minimum(
+        np.arange(nb, dtype=np.int64)[:, None] * BM_BLOCK_DOCS
+        + np.arange(BM_BLOCK_DOCS + 1, dtype=np.int64)[None, :],
+        n_docs,
+    )
+    doc_row = (row0[doc] - row0[doc[:, :1]]).astype(np.int32)
+    return rows.reshape(-1), cv, fid, doc_row
 
 
 def stream_doc_rows(segment: Segment, field: str, nb_pad: int,
@@ -572,6 +715,7 @@ MAX_B = PB_BUCKETS[-1]
 
 #: kernel launches (not plain-version calls) since process start
 launches = 0
+_launches_lock = threading.Lock()
 
 #: bounds of the plain version's working set: tf counters per block
 #: range, and (anchor, query) pairs per step
@@ -732,7 +876,8 @@ def phrase_stream(
             _ptr(acls), ctypes.c_void_p(stream),
         )
     cuda_build.check(err, "phrase launch")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return amax, acls
 
 
@@ -998,10 +1143,9 @@ def _dispatch_group(pack, q_idx, clauses, stats, smax=0):
 #: fine blocks whose (value, class, id) the phrase postprocessor ships
 #: per query, sorted by bound descending.  64 covers limit<=10 scans by
 #: a wide margin (ties terminate via the doc-id rule after ~limit hits)
-#: while keeping the fetched buffer small — 256 was measured spending
-#: 262ms of a 785ms batch just crossing the relay.  Queries whose scan
-#: is inconclusive within the shipped blocks fall back to a
-#: full-common match (correct, rare).
+#: while keeping the fetched buffer small (one copy to the host a
+#: dispatch).  Queries whose scan is inconclusive within the shipped
+#: blocks fall back to a full-common match (correct, rare).
 PHRASE_TOPK = 64
 
 

@@ -7,8 +7,8 @@ files and lets the OS page cache arbitrate memory
 (upstream `src/db/core.rs:238`).  A device-resident engine must
 arbitrate explicitly: packs are uploaded on first use and previously
 lived for the life of the process, so a handful of hot multi-M-doc
-namespaces would walk a 16GB chip into RESOURCE_EXHAUSTED and ride the
-per-query error fallback instead of a deliberate policy.
+namespaces would run the card out of memory instead of meeting a
+deliberate policy.
 
 Policy: least-recently-used.  Every upload *reserves* its bytes first;
 when the budget would overflow, the coldest packs (by last query touch)

@@ -32,6 +32,7 @@ oracle's own float order and re-ranked.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -73,6 +74,7 @@ PAD_FREE_LANES = 1 << 20
 
 #: dispatches launched since import (the smoke reads it; nothing else)
 launches = 0
+_launches_lock = threading.Lock()
 
 _INT64_MAX = (1 << 63) - 1
 _SENTINEL = int(DOC_SENTINEL)
@@ -304,7 +306,8 @@ def _dispatch(pack, chunk, t_pad: int, l_pad: int, k: int):
         d[:, 6 * t_pad], d[:, 6 * t_pad + 1], d[:, 6 * t_pad + 2],
         t_pad=t_pad, l_pad=l_pad, k=k, need_bits=need_bits,
     )
-    launches += 1
+    with _launches_lock:
+        launches += 1
     both = torch.stack([scores.view(torch.int32), docs]).cpu().numpy()
     return both[0].view(np.float32), both[1]
 

@@ -94,6 +94,12 @@ REWRITTEN = {
         "BlockMajorPack", "block_doc_offsets",
         # a delete also drops the device phrase path's reserved positions
         "Segment.delete_by_term",
+        # the packs built and uploaded in doc ranges (the entry pack's
+        # tf|fid words in entry ranges); the block constants' comment
+        # states no TPU timing
+        "BM_BLOCK_DOCS", "BUILD_RANGE_DOCS", "BUILD_RANGE_ENTRIES",
+        "build_ranges", "doc_range_keys", "span_values", "_TermTable",
+        "_i32",
     },
     # the code is the reference's (SAME_CODE below); the docstrings that
     # quoted the TPU's division and compile times say what holds on the
@@ -113,10 +119,15 @@ REWRITTEN = {
         # torch tensors on the index's device, with each doc's first raw
         # row for the kernel's walk over whole docs
         "TokenStreamPack", "get_token_stream", "stream_doc_rows",
+        # built and uploaded in doc ranges
+        "_stream_range",
+        # docstrings and comments that stated the TPU's sizes and times
+        "_stream_fits_budget", "estimate_device_batch_ms", "PHRASE_TOPK",
         # the TPU kernel and its CUDA and plain PyTorch counterparts; the
         # kernel reads the stream once for all MAX_B queries of a launch
         "_phrase_kernel", "_phrase_callable", "_KERNEL_CACHE", "_get_kernel",
-        "U_MAX", "MAX_B", "launches", "_PLAIN_TF_ELEMS", "_PLAIN_PAIRS",
+        "U_MAX", "MAX_B", "launches", "_launches_lock", "_PLAIN_TF_ELEMS",
+        "_PLAIN_PAIRS",
         "_row_slots", "phrase_stream_plain", "phrase_stream", "_lib",
         # operand checks on either device, and the built kernel's
         # registers, shared bytes and blocks per SM
