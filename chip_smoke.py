@@ -38,7 +38,12 @@ no CUDA device exists or the checkout is missing.  Phases:
    card as on CPU tensors, warm ms in turns against the host matcher
    and the stream, and the mix through ``search_topk_batch`` with the
    switch set equal to the oracle-checked results with phrases routed
-   to ``device_phrase`` (one ``{"phase": "device_phrase", ...}`` line);
+   to ``device_phrase`` (one ``{"phase": "device_phrase", ...}`` line).
+   Before it, the phrase router on the mix (:func:`phase_routing`): the
+   routes its phrases took, the cost model's estimates and decision, and
+   the phrases' measured ms on the host matcher and through the stream
+   (one ``{"phase": "routing", ...}`` line, which reports and fails on
+   no timing);
 5. warm QPS of the mix, the phrase batch's wall time against the host
    matcher's, and each kernel's time against its plain version's and
    its bound (the bytes its calls must move at 3.35 TB/s, or their
@@ -943,11 +948,46 @@ def phase_phrase_batch(ni, seg, stats, tag):
     log(f"phrase time {tag}: warm 256-phrase batch {med:.4f} s through "
         f"the stream (median of passes {[round(p, 4) for p in passes]} s), "
         f"host matcher on the same plans {t_host:.4f} s; cold pass "
-        f"{t_cold:.2f} s with the token-pack build; token pack "
-        f"{tok_bytes} bytes on the card; routing constants as fitted on "
-        f"the TPU host; one more pass split into staging and launch / "
-        f"device wait / fetch and host verify {split} s")
+        f"{t_cold:.2f} s (with the token-pack build where the mix did not "
+        f"stream); token pack {tok_bytes} bytes on the card; routing "
+        f"constants fitted on the card; one more pass split into staging "
+        f"and launch / device wait / fetch and host verify {split} s")
     return calls, launches, plans, warm
+
+
+def phase_routing(seg, stats, mix, routes, device, card):
+    """The phrase router on the main path's mix: the routes its phrase
+    plans took in phase 4's warm passes (the router unforced), the
+    router's three estimates for them (host matcher, stream, and the
+    overlap credit of the limit-10 call's device plans) with its
+    decision, and the phrases' measured ms alone on the host matcher and
+    through the stream (``tools/phrase_cost_validate.measure``: medians
+    of 3 warm runs; the stream's split into staging, device wait and
+    verify).  One ``{"phase": "routing", ...}`` line; no timing fails
+    it."""
+    from fugu_tpu_torch.ops import phrase_stream as ps
+    from fugu_tpu_torch.tools.phrase_cost_validate import measure
+
+    phrases = [p for cls, p, _l in mix if cls == "phrase"]
+    n_dev = sum(lim == 10 and not p.host_only for _c, p, lim in mix)
+    credit = ps.estimate_device_batch_ms(stats, n_dev)
+    host_ms, stream_ms, split, _each, _verify = measure(seg, stats, phrases,
+                                                      device)
+    line = {
+        "phase": "routing", "card": card, "phrases": len(phrases),
+        "device_plans": n_dev,
+        "routes": {k: routes.get(k, 0) for k in ("phrase_stream",
+                                                  "host_only")},
+        "host_est_ms": ps.estimate_host_ms(phrases, stats),
+        "stream_est_ms": ps.estimate_stream_ms(stats, len(phrases), phrases),
+        "credit_est_ms": credit,
+        "routed_stream": ps.want_stream(len(phrases), plans=phrases,
+                                        stats=stats, overlap_ms=credit),
+        "host_ms": host_ms, "stream_ms": stream_ms,
+        "stream_split_ms": split,
+    }
+    log(json.dumps(line))
+    return line
 
 
 def device_phrase_card_vs_cpu(seg, stats, plans, device, name) -> dict:
@@ -1002,9 +1042,13 @@ def phase_device_phrase(ni, seg, stats, mix, run_mix, warm, phrases, device,
     each plan the same outcome and overflow flag and the same candidate
     docs.  Then the mix through ``search_topk_batch`` with the switch
     set must equal phase 4's oracle-checked results and route phrases to
-    ``device_phrase``; 2 passes with the switch and 2 without, in turns.
-    One JSON line."""
+    ``device_phrase``, which takes what the stream declines: with the
+    switch the stream is priced out (``STREAM_FIXED_MS`` infinite), as
+    the router kept the mix's phrases off it when the switch was added;
+    2 passes with the switch and 2 without (the router as it is), in
+    turns.  One JSON line."""
     from fugu_tpu_torch.ops import device_phrase as dp
+    from fugu_tpu_torch.ops import phrase_stream as ps
     from fugu_tpu_torch.ops import residency
     from fugu_tpu_torch.tools.device_phrase_ab import Mismatch, compare
 
@@ -1021,14 +1065,17 @@ def phase_device_phrase(ni, seg, stats, mix, run_mix, warm, phrases, device,
                                                     device, name))
 
     def mix_pass(switch: bool):
+        fixed = ps.STREAM_FIXED_MS
         if switch:
             os.environ[dp.SWITCH] = "1"
+            ps.STREAM_FIXED_MS = float("inf")
         try:
             t1 = time.perf_counter()
             out = run_mix()
             return out, time.perf_counter() - t1
         finally:
             os.environ.pop(dp.SWITCH, None)
+            ps.STREAM_FIXED_MS = fixed
 
     ni.routes.clear()
     got, _t = mix_pass(True)
@@ -2624,21 +2671,28 @@ def main() -> None:
         t_cold = time.perf_counter() - t0
         bs.launches = 0
         ba.launches = 0
+        ps.launches = 0
         ni.routes.clear()
         passes = []
         with Recorder(bs, "score_rows") as rec_s, \
-                Recorder(ba, "phasea") as rec_a:
+                Recorder(ba, "phasea") as rec_a, \
+                Recorder(ps, "phrase_stream") as rec_p:
             for _ in range(3):
                 t0 = time.perf_counter()
                 warm = run_mix()
                 passes.append(time.perf_counter() - t0)
                 if _ == 0:
                     calls_s, calls_a = list(rec_s.calls), list(rec_a.calls)
-        launches = {"block_scorer": bs.launches, "phase_a": ba.launches}
+                    calls_pm = list(rec_p.calls)
+        launches = {"block_scorer": bs.launches, "phase_a": ba.launches,
+                    "phrase_stream": ps.launches}
         routes = dict(ni.routes)
-        for name, n in launches.items():
-            if n <= 0:
+        for name in ("block_scorer", "phase_a"):
+            if launches[name] <= 0:
                 fail(f"the main path never launched the {name} kernel")
+        if routes.get("phrase_stream", 0) and launches["phrase_stream"] <= 0:
+            fail(f"the mix streamed {routes['phrase_stream']} phrase plans "
+                 f"and never launched the phrase kernel")
         t0 = time.perf_counter()
         n_ok = 0
         for i, (_cls, plan, lim) in enumerate(mix):
@@ -2657,12 +2711,17 @@ def main() -> None:
             f"(median of {len(passes)} passes {[round(p, 4) for p in passes]}"
             f" s; cold pass {t_cold:.2f} s); its {routes.get('host_only', 0)}"
             f" host-matcher and {routes.get('phrase_stream', 0)} streamed "
-            f"phrase plans over 3 passes follow the overlap credit")
+            f"phrase plans over 3 passes follow the router's cost model "
+            f"({launches['phrase_stream']} phrase kernel launches, "
+            f"{len(calls_pm)} a pass)")
 
         # phase 4, phrases: a 256-phrase batch on the same namespace
         calls_p, p_launches, phrases, phrase_warm = phase_phrase_batch(
             ni, seg, stats, tag)
-        launches["phrase_stream"] = p_launches
+        launches["phrase_stream"] += p_launches
+
+        # where the router sent the mix's phrases, and what each side costs
+        phase_routing(seg, stats, mix, routes, device, card)
 
         # the device phrase path behind the reference's opt-in switch
         phase_device_phrase(ni, seg, stats, mix, run_mix, warm, phrases,
@@ -2679,12 +2738,13 @@ def main() -> None:
              "fugu_tpu_torch/csrc/phasea.cu",
              "fugu_tpu/ops/batch_scorer.py:195", compare_phasea,
              phasea_cost),
-            ("phrase_stream", calls_p, ps, "phrase_stream",
+            ("phrase_stream", calls_pm + calls_p, ps, "phrase_stream",
              "phrase_stream_plain", "fugu_tpu_torch/csrc/phrase.cu",
              "fugu_tpu/ops/phrase_stream.py:539", compare_phrase,
              phrase_cost),
         ):
-            err = max(cmp(a, mod) for a in calls)
+            errs = [cmp(a, mod) for a in calls]
+            err = max(errs)
             fk, fp = getattr(mod, run), getattr(mod, plain)
             each = [cuda_ms(lambda a=a: fk(*a), 5) for a in calls]
             ms = sum(each)
@@ -2705,8 +2765,13 @@ def main() -> None:
             })
             if name == "phrase_stream":
                 kernels[-1].update(ps.kernel_info())
+                n_pm = len(calls_pm)
+                log(f"phrase kernel on the mix {tag}: {n_pm} launches a "
+                    f"warm pass, {sum(each[:n_pm]):.3f} ms, max abs err "
+                    f"{max(errs[:n_pm], default=0.0)!r} against the plain "
+                    f"version")
             log(f"kernel time {tag}: {name} {ms:.3f} ms vs plain "
-                f"{plain_ms:.3f} ms per warm pass of its batch "
+                f"{plain_ms:.3f} ms per warm pass of the batches that launch it "
                 f"({len(calls)} launches), bound {bound_ms:.4f} ms by "
                 f"{bound_by} ({nbytes} bytes, {ops} operations), share "
                 f"{bound_ms / ms:.4f}, max abs err {err!r}; library call: "

@@ -48,8 +48,8 @@ carried docstrings that name them describe the reference).  The one
 environment switch on the phrase path is the reference's opt-in
 ``FUGU_DEVICE_PHRASE=1``, which sends what the stream declines to
 ``ops/device_phrase`` (``engine/named_index.py``, ``bench.py``).
-The cost model's constants were fitted on the TPU host and are starting
-values on the GPU.
+The cost model's constants are the card's (fitted on an H100 and its
+host; the readings are beside them).
 
 Eligibility: single-group single-phrase plans (the quoted-query shape),
 slop <= MAX_SLOP, <= 8 terms, default k1/b, positive boost, limit
@@ -61,6 +61,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -123,35 +124,71 @@ PK_BUCKETS = (2, 4, 8)
 #: constraint is kmax_bucket - 1 + smax <= KGAP, so the top bucket is 7
 PK_SLOP_BUCKETS = (2, 4, 7)
 
-#: one stream pays a fixed cost (staging, launch, postproc, fetch);
-#: below this many staged phrases the host matcher is cheaper
-PHRASE_MIN_BATCH = 8
+#: below this many staged phrases nothing streams.  1: the cost model's
+#: fixed terms price the stream's fixed cost (staging, launch, postproc,
+#: fetch), and on NVIDIA H100 80GB HBM3 (700.00 W) one head-term phrase
+#: of the mix alone costs the host matcher more than a stream of it
+#: (mix_timing.py --overlap's small batches: 3.84 against 1.73 ms at 1M
+#: docs, 56.0 against 6.7 ms at 16M)
+PHRASE_MIN_BATCH = 1
 
 #: a batch of at least this many phrases streams unconditionally when
 #: the cost model below lacks its inputs (plans and stats); with them,
 #: the cost model decides at any batch size
 PHRASE_AUTO_MIN = 128
 
-#: df cost model for auto routing, fitted on the TPU host (1M bench
-#: corpus) and carried as starting values.  The host matcher intersects
-#: rarest-first (ops/phrase.py PhraseMatcher), so its cost tracks the
-#: SMALLEST constituent df plus the adjacency work on the candidate
-#: intersection Πdf/N, corrected by (1 + 3·min_df/N) because positions
-#: per doc grow with df.  The stream's sweep is df-INDEPENDENT: a fixed
-#: cost, a cost per corpus token, and a small cost per phrase (host
-#: verify).
-HOST_NS_PER_MIN_POSTING = 44.0
-HOST_NS_PER_INTER_DOC = 55.6
-STREAM_NS_PER_TOKEN = 2.0
-STREAM_FIXED_MS = 45.0
-STREAM_MS_PER_PHRASE = 1.4
+#: The df cost model for auto routing, fitted on NVIDIA H100 80GB HBM3
+#: at 700.00 W and the 8-core host beside it by tools/routing_fit from
+#: the readings of tools/phrase_cost_validate at 500,000 docs (its 8
+#: batches of 16-160 phrases on "home", Zipf 1.07, and "flat", Zipf 0.7:
+#: each phrase's host ms and dfs, the stream's ms) and of mix_timing.py
+#: --overlap 128 at 1M docs (the mix's 24 phrases, and 152 with the
+#: phrase batch's).  The values below give every one of those 10 batches
+#: to its measured winner.  The reference's form refitted to the same 10
+#: batches does not: it keeps "flat" heavy16 on the host (estimates 0.73
+#: ms host, 1.49 ms stream; read 2.55 and 1.29 ms), and its stream
+#: estimates are 0.13-0.32x of the readings on home's heavy16, mixed32
+#: and heavy160 and on the 1M mix's 24 and 152 phrases.
+#: PERF.md, "Routing constants", has the checks on batches outside the
+#: fit.
+#:
+#: Host matcher (ops/phrase.py PhraseMatcher, rarest-first): a cost per
+#: rarest-term posting, per expected intersection doc I (prod df /
+#: N^(k-1), x (slop + 1), x (1 + 3 min_df / N)), per posting of the other
+#: terms that the matcher tests on a doc bitmap (_bitmap_postings: a term
+#: the reference's form lacks), and per phrase times the chance 1 - exp(-I)
+#: that it has a common doc, which then pays the bound, block-max and
+#: adjacency passes (also new; read: 0.074 ms a phrase at I < 1, 0.21 at
+#: 1-10, 0.55 at 10-100).  Estimates 0.62-1.22x of the measured host ms
+#: of the 10 batches (home heavy160: 501 ms, 558 read).
+HOST_NS_PER_MIN_POSTING = 23.5
+HOST_NS_PER_INTER_DOC = 34.0
+HOST_NS_PER_OTHER_POSTING = 7.0
+HOST_MS_PER_MATCHING_PHRASE = 0.29
+#: Stream: staging and launch, a fixed cost and a cost a phrase; the
+#: phrase kernel's sweep, 0.0074 ns a token (its 12.962 ms for 2
+#: launches over 16M docs' 880,057,233 tokens; 1M: 0.943 ms for 2 over
+#: 54,999,282); and the host verify of the shipped blocks
+#: (_rescore_blocks), which the reference's form prices as a constant a
+#: phrase but which on the card follows the phrase's expected
+#: intersection I and levels off: STREAM_VERIFY_MS x I / (I +
+#: STREAM_VERIFY_HALF_DOCS) a phrase (read: 0.003 ms a phrase at I < 1,
+#: 0.17 at 10-100, 0.99 at 1,000-10,000, 1.98 past 100,000; the half
+#: point is the least-residual one of routing_fit's grid).  Estimates
+#: 0.90-1.05x of the measured stream ms of the 10 batches.
+STREAM_NS_PER_TOKEN = 0.0074
+STREAM_FIXED_MS = 0.42
+STREAM_MS_PER_PHRASE = 0.049
+STREAM_VERIFY_MS = 1.41
+STREAM_VERIFY_HALF_DOCS = 794.0
 
 
-def estimate_host_ms(plans, stats) -> float:
-    """Predicted host-matcher cost: rarest-posting walk + intersection
-    adjacency work per phrase (see the calibration note above)."""
+def _live_phrases(plans, stats):
+    """(dfs, min_df, expected intersection I, prod df / N^(k-1), slop
+    factor) of each phrase of ``plans`` whose terms all occur (a dead
+    phrase costs nothing); I is corrected for slop and for positions a
+    doc growing with df."""
     n = max(stats.doc_count, 1)
-    total = 0.0
     for p in plans:
         for g in p.groups:
             for pc in g.phrases:
@@ -163,30 +200,56 @@ def estimate_host_ms(plans, stats) -> float:
                 for d in dfs:
                     inter *= d
                 inter /= float(n) ** (len(dfs) - 1)
-                total += min_df * HOST_NS_PER_MIN_POSTING * 1e-6
                 # slop multiplies the adjacency work: each later term's
                 # anchor set expands (slop+1)x before the intersection
                 # (PhraseMatcher.match's np.unique over shifted copies)
                 slop_f = 1.0 + max(int(getattr(pc, "slop", 0) or 0), 0)
-                total += (
-                    inter
-                    * slop_f
-                    * HOST_NS_PER_INTER_DOC
-                    * 1e-6
-                    * (1.0 + 3.0 * min_df / n)
-                )
+                expected = inter * slop_f * (1.0 + 3.0 * min_df / n)
+                yield dfs, min_df, expected, inter, slop_f
+
+
+def _bitmap_postings(dfs, n: int) -> int:
+    """Postings of a phrase's other terms whose membership pass the host
+    matcher runs on a doc bitmap (ops/phrase.py PhraseMatcher: where
+    ``n <= 8 (df + survivors)``, the rarest term's df standing for the
+    survivors); its binary-search pass otherwise costs little beside the
+    rarest term's walk."""
+    rest = sorted(dfs)
+    return sum(d for d in rest[1:] if n <= 8 * (d + rest[0]))
+
+
+def estimate_host_ms(plans, stats) -> float:
+    """Predicted host-matcher cost of ``plans`` in ms (see the fit note
+    above)."""
+    n = max(stats.doc_count, 1)
+    total = 0.0
+    for dfs, min_df, expected, inter, slop_f in _live_phrases(plans, stats):
+        total += min_df * HOST_NS_PER_MIN_POSTING * 1e-6
+        total += (
+            inter
+            * slop_f
+            * HOST_NS_PER_INTER_DOC
+            * 1e-6
+            * (1.0 + 3.0 * min_df / n)
+        )
+        total += _bitmap_postings(dfs, n) * HOST_NS_PER_OTHER_POSTING * 1e-6
+        total += -math.expm1(-expected) * HOST_MS_PER_MATCHING_PHRASE
     return total
 
 
-def estimate_stream_ms(stats, n_phrases: int) -> float:
-    """Predicted stream cost: the df-independent corpus sweep plus the
-    small per-phrase verify/lane cost."""
+def estimate_stream_ms(stats, n_phrases: int, plans=None) -> float:
+    """Predicted stream cost in ms: the df-independent staging and sweep,
+    a small cost a phrase, and with ``plans`` each phrase's host verify
+    (see the fit note above)."""
     toks = sum(stats.total_tokens.values())
-    return (
+    ms = (
         STREAM_FIXED_MS
         + toks * STREAM_NS_PER_TOKEN * 1e-6
         + n_phrases * STREAM_MS_PER_PHRASE
     )
+    for _dfs, _m, expected, _i, _s in _live_phrases(plans or (), stats):
+        ms += STREAM_VERIFY_MS * expected / (expected + STREAM_VERIFY_HALF_DOCS)
+    return ms
 
 
 def _stream_fits_budget(stats) -> bool:
@@ -226,28 +289,29 @@ def want_stream(
     n_phrases: int, plans=None, stats=None, overlap_ms: float = 0.0
 ) -> bool:
     """Whether a batch of ``n_phrases`` phrase plans should stream (the
-    reference's ``auto`` mode).
+    reference's ``auto`` mode), by the cost model above: the stream when
+    the host matcher's estimate exceeds the stream's.
 
-    ``overlap_ms``: estimated wall time of the DEVICE batch the same
-    call dispatches concurrently (0 for a pure phrase batch).  The host
-    matcher runs on a worker thread UNDER that batch (engine/
-    named_index), so up to ``overlap_ms`` of host phrase work is free,
-    while the stream's sweep ADDS device time to the same device queue.
-    Callers estimate overlap with :func:`estimate_device_batch_ms`."""
+    ``overlap_ms``: estimated host phrase work that the DEVICE batch the
+    same call dispatches concurrently hides (0 for a pure phrase batch).
+    The host matcher runs on a worker thread beside that batch
+    (engine/named_index), so only the host excess beyond ``overlap_ms``
+    competes with the stream.  Callers estimate it with
+    :func:`estimate_device_batch_ms`, which is 0 on the card (nothing
+    hides: see its readings)."""
     if stats is not None and not _stream_fits_budget(stats):
         return False
     if overlap_ms > 0.0:
         # a concurrent device batch: only the host excess beyond the
-        # device wall competes with the stream's sweep, at ANY batch
-        # size.  The credit gates on overlap_ms ALONE: missing model
-        # inputs mean "don't stream", never the unconditional
-        # PHRASE_AUTO_MIN stream the credit exists to prevent
+        # credit competes with the stream, at ANY batch size.  The credit
+        # gates on overlap_ms ALONE: missing model inputs mean "don't
+        # stream", never the unconditional PHRASE_AUTO_MIN stream
         if plans is None or stats is None:
             return False
         return (
             n_phrases >= PHRASE_MIN_BATCH
             and estimate_host_ms(plans, stats) - overlap_ms
-            > estimate_stream_ms(stats, n_phrases)
+            > estimate_stream_ms(stats, n_phrases, plans)
         )
     if n_phrases >= PHRASE_AUTO_MIN and (plans is None or stats is None):
         return True  # model inputs missing: large batches favor the sweep
@@ -255,33 +319,27 @@ def want_stream(
         return False
     # the cost model decides at ANY batch size when its inputs exist:
     # df-blind batch-size rules don't transfer across df profiles
-    return estimate_host_ms(plans, stats) > estimate_stream_ms(stats, n_phrases)
+    return estimate_host_ms(plans, stats) > estimate_stream_ms(
+        stats, n_phrases, plans)
 
 
 def estimate_device_batch_ms(
     stats, n_queries: int, token_share: float = 1.0
 ) -> float:
-    """Crude wall-time model of a concurrent two-phase device batch, for
-    want_stream's overlap credit.  Phase A sweeps the same corpus the
-    phrase stream does with the same cost shape (fixed dispatch floor +
-    per-token sweep + per-query staging/wave cost), so the calibrated
-    stream constants transfer.  The constants were fitted on the
-    reference's hardware, and the card's kernels run a 1M-doc batch in
-    a few ms, so this overstates the card's batch (and the credit).
+    """The overlap credit of a concurrent two-phase device batch of
+    ``n_queries`` plans, for want_stream: the host phrase work it hides.
+    0 on NVIDIA H100 80GB HBM3 (700.00 W): at 1M docs the mix's 87-100
+    ms device batch hid -97, -61, -14, -1, +35 and +56 ms of 122-702 ms
+    of host phrase work (mix_timing.py --overlap, three calls; -14 ms on
+    average), since the worker thread and the main thread's staging and
+    rescore share the GIL.  The one 16M reading, +663 ms, exceeds that
+    batch's own 432 ms wall (the host matcher's spread), so nothing was
+    fitted at 16M.
 
     ``token_share``: fraction of the index's tokens the concurrent batch
     actually sweeps — multi-segment callers pass the CURRENT segment's
-    share, since each segment's device batch sweeps only that segment
-    (index-wide stats would overestimate the credit per segment and bias
-    phrases onto the host thread, ADVICE r4)."""
-    if n_queries <= 0:
-        return 0.0
-    toks = sum(stats.total_tokens.values()) * min(max(token_share, 0.0), 1.0)
-    return (
-        STREAM_FIXED_MS
-        + toks * STREAM_NS_PER_TOKEN * 1e-6
-        + n_queries * STREAM_MS_PER_PHRASE
-    )
+    share, since each segment's device batch sweeps only that segment."""
+    return 0.0
 
 
 # --------------------------------------------------------------------------

@@ -13,17 +13,20 @@ lengths Poisson clipped to [4, 200]).  On each, four phrase batches
 span the df spectrum (:func:`phrase_batches`: 16 selective phrases, 16
 heavy, 32 mixed, 160 heavy).  Per batch it takes ``want_stream``'s
 decision and the cost model's two estimates, then times the host
-matcher (``search_blockmax``, the oracle where it declines) against the
-phrase stream (``batch_phrase_search`` on the device, the host matcher
-for what it declines), the medians of 3 warm runs, and says whether the
-router picked the measured winner.  Decisions where the two times lie
-within ``TOLERANCE_PCT`` of each other count as right either way.
+matcher (``search_blockmax``, the oracle where it declines; each plan
+on its own too) against the phrase stream (``phrase_stream_begin`` and
+``phrase_stream_collect`` on the device, split into staging and
+launches, the device wait and the verify, the host matcher for what it
+declines), the medians of 3 warm runs, then once more the stream's
+verify of each plan (``_rescore_blocks``), and says whether the router
+picked the measured winner.  Decisions where the two times lie within
+``TOLERANCE_PCT`` of each other count as right either way.
 
-It changes no constant: its line is the input of a later refit of the
-routing constants (``ops/phrase_stream.py``), which are the TPU host's.
-Prints one JSON line ``{"ok", "tolerance_pct", "card", "points"}``;
-exits 0 when every decision was right, 2 otherwise, 1 without the
-device.
+It changes no constant.  Its line (with each plan's dfs, host ms and
+verify ms) is an input of ``tools/routing_fit``, which fits the
+routing constants of ``ops/phrase_stream.py``.  Prints one JSON line
+``{"ok", "tolerance_pct", "card", "points"}``; exits 0 when every
+decision was right, 2 otherwise, 1 without the device.
 """
 
 from __future__ import annotations
@@ -112,43 +115,92 @@ def decision(plans, stats) -> dict:
         "routed_stream": bool(want_stream(len(plans), plans=plans,
                                           stats=stats)),
         "host_est_ms": estimate_host_ms(plans, stats),
-        "stream_est_ms": estimate_stream_ms(stats, len(plans)),
+        "stream_est_ms": estimate_stream_ms(stats, len(plans), plans),
+        "tokens": sum(stats.total_tokens.values()),
     }
 
 
+def phrase_dfs(plans, stats):
+    """Each plan's phrase terms' dfs (the host estimate's inputs)."""
+    return [[stats.doc_freq(pc.field, t) for t in pc.terms]
+            for p in plans for g in p.groups for pc in g.phrases]
+
+
 def measure(seg, stats, plans, device, reps: int = 3):
-    """(host ms, stream ms) medians of serving the whole batch."""
+    """(host ms, stream ms, stream split, host ms a plan) medians of
+    serving the whole batch; the split is the stream's staging and
+    launches, its wait for the device, and its fetch and host verify
+    with the host matcher for what it declines, in ms."""
     import torch
 
     from fugu_tpu_torch.bench import host_path
     from fugu_tpu_torch.ops.blockmax import search_blockmax
-    from fugu_tpu_torch.ops.phrase_stream import batch_phrase_search
+    from fugu_tpu_torch.ops.phrase_stream import (
+        phrase_stream_begin, phrase_stream_collect,
+    )
 
     def host_run():
+        each = []
         for p in plans:
+            t0 = time.perf_counter()
             host_path(seg, p, stats, 10)
+            each.append((time.perf_counter() - t0) * 1000)
+        return each
 
     def stream_run():
-        res = batch_phrase_search(seg, plans, stats, [10] * len(plans),
-                                  device)
+        t0 = time.perf_counter()
+        handle = phrase_stream_begin(seg, plans, stats, [10] * len(plans),
+                                     device)
+        t1 = time.perf_counter()
         if device.type == "cuda":
             torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res = phrase_stream_collect(handle)
         # what the stream declines the host matcher serves
         for p, r in zip(plans, res):
             if r is None:
                 search_blockmax(seg, p, stats, 10)
+        return [(t1 - t0) * 1000, (t2 - t1) * 1000,
+                (time.perf_counter() - t2) * 1000]
 
     host_run()  # warm the skip tables
     stream_run()  # the token stream's build and upload
     hs, ss = [], []
     for _ in range(reps):
         t0 = time.perf_counter()
-        host_run()
-        hs.append((time.perf_counter() - t0) * 1000)
+        hs.append(host_run())
+        ss.append(stream_run())
+    hs.sort(key=sum)
+    ss.sort(key=sum)
+    per_plan = [sorted(x)[len(x) // 2] for x in zip(*hs)]
+    return (sum(hs[len(hs) // 2]), sum(ss[len(ss) // 2]), ss[len(ss) // 2],
+            per_plan, verify_ms(seg, stats, plans, device))
+
+
+def verify_ms(seg, stats, plans, device):
+    """The stream's host verify (``_rescore_blocks``) of each plan in
+    one more warm run, in ms (None for a plan it did not verify)."""
+    from fugu_tpu_torch.ops import phrase_stream as ps
+
+    inner = ps._rescore_blocks
+    took = {}
+
+    def timed(segment, pc, *a, **k):
         t0 = time.perf_counter()
-        stream_run()
-        ss.append((time.perf_counter() - t0) * 1000)
-    return sorted(hs)[len(hs) // 2], sorted(ss)[len(ss) // 2]
+        out = inner(segment, pc, *a, **k)
+        took.setdefault(pc, []).append((time.perf_counter() - t0) * 1000)
+        return out
+
+    ps._rescore_blocks = timed
+    try:
+        ps.batch_phrase_search(seg, plans, stats, [10] * len(plans), device)
+    finally:
+        ps._rescore_blocks = inner
+    out = []
+    for p in plans:
+        pc = ps.eligible_phrase(p)
+        out.append(took[pc].pop(0) if took.get(pc) else None)
+    return out
 
 
 def main(argv=None) -> int:
@@ -173,15 +225,19 @@ def main(argv=None) -> int:
         for bname, plans in phrase_batches(seg):
             pt = {"corpus": tag, "docs": seg.doc_count, "batch": bname,
                   **decision(plans, stats)}
-            host_ms, stream_ms = measure(seg, stats, plans, device)
+            host_ms, stream_ms, split, each, verify = measure(
+                seg, stats, plans, device)
             wins = stream_ms < host_ms
             near = (abs(host_ms - stream_ms)
                     <= TOLERANCE_PCT / 100.0 * max(host_ms, stream_ms))
             good = near or pt["routed_stream"] == wins
             ok &= good
             pt.update(host_ms=host_ms, stream_ms=stream_ms,
-                      measured_stream_wins=wins, near_crossover=near,
-                      ok=good)
+                      stream_split_ms=split, host_plan_ms=each,
+                      verify_plan_ms=verify,
+                      plan_dfs=phrase_dfs(plans, stats),
+                      measured_stream_wins=wins,
+                      near_crossover=near, ok=good)
             points.append(pt)
             log(f"{tag}/{bname}: {pt}")
         del seg, stats

@@ -112,10 +112,22 @@ REWRITTEN = {
     "ops/residency.py": {"__doc__", "_auto_budget", "_HBM_BY_KIND"},
     "ops/phrase_stream.py": {
         "__doc__", "import", "jax_setup.configure",
-        # routing without the environment
+        # routing without the environment, its cost model fitted on the
+        # card: the constants' values and the readings beside them; the
+        # host estimate gains the other terms' postings that the matcher
+        # tests on a doc bitmap and the chance a phrase has a common doc,
+        # the stream estimate a verify cost that
+        # follows a phrase's expected intersection (the reference prices
+        # it as a constant a phrase); the overlap credit
+        # (estimate_device_batch_ms, below) is 0 on the card
         "PHRASE_MIN_BATCH", "PHRASE_AUTO_MIN", "HOST_NS_PER_MIN_POSTING",
-        "HOST_NS_PER_INTER_DOC", "STREAM_NS_PER_TOKEN", "STREAM_FIXED_MS",
-        "STREAM_MS_PER_PHRASE", "phrase_stream_mode", "want_stream",
+        "HOST_NS_PER_INTER_DOC", "HOST_NS_PER_OTHER_POSTING",
+        "HOST_MS_PER_MATCHING_PHRASE", "STREAM_NS_PER_TOKEN",
+        "STREAM_FIXED_MS", "STREAM_MS_PER_PHRASE", "STREAM_VERIFY_MS",
+        "STREAM_VERIFY_HALF_DOCS",
+        "_live_phrases", "_bitmap_postings", "estimate_host_ms",
+        "estimate_stream_ms",
+        "phrase_stream_mode", "want_stream",
         # torch tensors on the index's device, with each doc's first raw
         # row for the kernel's walk over whole docs
         "TokenStreamPack", "get_token_stream", "stream_doc_rows",

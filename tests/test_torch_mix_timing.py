@@ -52,3 +52,38 @@ def test_script_runs_the_mix_on_the_cpu(tmp_path):
     assert "device_idle_share" not in first
     assert second["device_busy_ms"] == 0.0  # no device events on the CPU
     assert (tmp_path / "prof" / "trace.json.gz").exists()
+
+
+def test_script_forces_the_phrase_route_in_turns(tmp_path):
+    """``--phrase-route`` turns on the CPU: the forced stream turn sends
+    every phrase of the mix to the stream, the forced host turn none;
+    ``--overlap`` prints the credit's readings, small batches included;
+    an unknown route is refused."""
+    cmd = [sys.executable, str(REPO / "mix_timing.py"), "--namespace",
+           str(tmp_path / "ns"), "--tree", str(REPO), "--docs", "3000",
+           "--passes", "1", "--device", "cpu"]
+    out = subprocess.run(cmd + ["--phrase-route", "host,stream,auto",
+                                "--overlap", "8"],
+                         capture_output=True, text=True, cwd=tmp_path,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = [json.loads(x) for x in out.stdout.splitlines()
+             if x.startswith("{")]
+    main, overlap = lines
+    assert [t["route"] for t in main["turns"]] == ["host", "stream", "auto"]
+    assert main["phrase_route"] == "host"
+    assert main["median_s"] == main["turns"][0]["median_s"]
+    host, stream, _auto = (t["routes"] for t in main["turns"])
+    assert host.get("phrase_stream", 0) == 0 and host["host_only"] == 24
+    assert stream["phrase_stream"] == 24 and stream.get("host_only", 0) == 0
+    assert overlap["mix"]["phrases"] == 24 and overlap["batch"]["phrases"] == 32
+    for row in (overlap["mix"], overlap["batch"]):
+        assert len(row["plan_dfs"]) == len(row["host_plan_ms"]) == row[
+            "phrases"]
+        assert row["hidden_ms"] == pytest.approx(
+            overlap["device_ms"] + row["host_ms"] - row["with_host_ms"])
+    assert [r["phrases"] for r in overlap["small"]] == [1, 2, 4, 8]
+    bad = subprocess.run(cmd + ["--phrase-route", "auto,gpu"],
+                         capture_output=True, text=True, cwd=tmp_path,
+                         timeout=300)
+    assert bad.returncode == 2 and "gpu" in bad.stderr

@@ -568,6 +568,29 @@ def _pplans(pairs):
     return [to_port_plan(_phrase_plan(list(p))) for p in pairs]
 
 
+def reference_routing() -> dict:
+    """The reference's routing for the port's cost model: its constants
+    where the reference has the name, for the port's added terms the
+    values that reduce the model to the reference's form (no
+    other-posting, matching-phrase or verify cost), and the reference's
+    overlap credit (priced with the stream's constants)."""
+    out = {k: getattr(ref_ps, k) for k in (
+        "PHRASE_MIN_BATCH", "PHRASE_AUTO_MIN", "HOST_NS_PER_MIN_POSTING",
+        "HOST_NS_PER_INTER_DOC", "STREAM_NS_PER_TOKEN", "STREAM_FIXED_MS",
+        "STREAM_MS_PER_PHRASE")}
+    out.update(
+        HOST_NS_PER_OTHER_POSTING=0.0, HOST_MS_PER_MATCHING_PHRASE=0.0,
+        STREAM_VERIFY_MS=0.0,
+        estimate_device_batch_ms=ref_ps.estimate_device_batch_ms)
+    return out
+
+
+def _with_routing(monkeypatch, constants: str):
+    if constants == "reference":
+        for name, value in reference_routing().items():
+            monkeypatch.setattr(ps, name, value)
+
+
 def test_want_stream_auto_routing(monkeypatch):
     """Without model inputs, batch size alone decides; the constants
     stand in for the reference's FUGU_PHRASE_STREAM modes."""
@@ -583,24 +606,36 @@ def test_want_stream_reads_no_environment(monkeypatch):
     """The port routes as the reference's default auto mode whatever
     the reference's switches say, and its sources read no variable."""
     head = _FakeStats({"a": 963_000, "b": 999_000})
+    selective = _FakeStats({"a": 30, "b": 90})
     plans = _pplans([("a", "b")] * 8)
-    before = [ps.want_stream(n, plans[:n], head) for n in (1, 8)]
+    cases = [(1, head), (8, head), (8, selective)]
+
+    def decide():
+        return [ps.want_stream(n, plans[:n], st) for n, st in cases]
+
+    before = decide()
     for var, val in (("FUGU_PHRASE_STREAM", "0"), ("FUGU_PHRASE_MIN_BATCH", "1"),
                      ("FUGU_PHRASE_STREAM_FIXED_MS", "1e9"),
                      ("FUGU_PHRASE_HOST_NS", "0")):
         monkeypatch.setenv(var, val)
-    assert [ps.want_stream(n, plans[:n], head) for n in (1, 8)] == before
-    assert before == [False, True]
+    assert decide() == before
+    # on the card one head-term phrase already streams
+    assert before == [True, True, False]
     assert not hasattr(ps, "phrase_stream_mode")
     for mod in ("ops/phrase_stream.py", "engine/named_index.py"):
         src = (REPO / "fugu_tpu_torch" / mod).read_text()
         assert not re.search(r"\bos\.environ|\bgetenv\b", src), mod
 
 
-def test_want_stream_cost_model():
+@pytest.mark.parametrize("constants", ["card", "reference"])
+def test_want_stream_cost_model(constants, monkeypatch):
     """Selective phrases stay on the host; Zipf-head pairs (whose host
-    intersection cost explodes) go to the stream."""
-    selective = _FakeStats({"a": 5_000, "b": 15_000})
+    intersection cost explodes) go to the stream; dead phrases stay on
+    the host; below PHRASE_MIN_BATCH nothing streams (the card's floor
+    is 1, so also at the reference's 8)."""
+    _with_routing(monkeypatch, constants)
+    dfs = {"card": (30, 90), "reference": (5_000, 15_000)}[constants]
+    selective = _FakeStats(dict(zip("ab", dfs)))
     assert not ps.want_stream(8, plans=_pplans([("a", "b")] * 8),
                               stats=selective)
     head = _FakeStats({"a": 963_000, "b": 999_000})
@@ -608,21 +643,62 @@ def test_want_stream_cost_model():
     assert ps.want_stream(8, plans=head_plans, stats=head)
     dead = _FakeStats({"a": 0, "b": 999_000})
     assert not ps.want_stream(8, plans=head_plans, stats=dead)
+    for floor in sorted({ps.PHRASE_MIN_BATCH, 8}):
+        monkeypatch.setattr(ps, "PHRASE_MIN_BATCH", floor)
+        assert not ps.want_stream(
+            floor - 1, plans=head_plans[: floor - 1], stats=head)
+        assert ps.want_stream(floor, plans=head_plans[:floor], stats=head)
+
+
+def test_want_stream_keeps_selective_phrases_on_the_host():
+    """16 selective phrases at 1M docs (the cost tool's uniform draw:
+    expected intersections well under a doc) stay on the host matcher,
+    alone and beside a device batch."""
+    selective = _FakeStats({"a": 300, "b": 900})
+    plans = _pplans([("a", "b")] * 16)
+    assert not ps.want_stream(16, plans=plans, stats=selective)
     assert not ps.want_stream(
-        ps.PHRASE_MIN_BATCH - 1,
-        plans=head_plans[: ps.PHRASE_MIN_BATCH - 1],
-        stats=head,
-    )
+        16, plans=plans, stats=selective,
+        overlap_ms=ps.estimate_device_batch_ms(selective, 232))
 
 
-def test_want_stream_overlap_credit(monkeypatch):
-    """With a concurrent device batch, host phrase work hides under it:
-    the router streams only when the host estimate exceeds the overlap
-    credit by more than the sweep's cost."""
+def test_want_stream_streams_head_phrases_at_16m(monkeypatch):
+    """16M-doc stats (880M tokens): the mix's 24 head-term phrases beside
+    its 232 device queries stream (the host matcher takes seconds, the
+    stream's sweep about 7 ms); with the reference's TPU constants its
+    overlap credit kept them on the host."""
+    monkeypatch.setattr(residency, "budget_bytes", lambda: None)
+    big = _FakeStats({"a": 1_000_000, "b": 4_000_000})
+    big.doc_count = 16_000_000
+    big.total_tokens = {"text": 880_000_000}
+    plans = _pplans([("a", "b")] * 24)
+    assert ps.want_stream(24, plans=plans, stats=big,
+                          overlap_ms=ps.estimate_device_batch_ms(big, 232))
+    _with_routing(monkeypatch, "reference")
+    assert not ps.want_stream(
+        24, plans=plans, stats=big,
+        overlap_ms=ps.estimate_device_batch_ms(big, 232))
+
+
+@pytest.mark.parametrize("constants", ["card", "reference"])
+def test_want_stream_overlap_credit(constants, monkeypatch):
+    """With a concurrent device batch, host phrase work that hides under
+    it is credited: the router streams only when the host estimate
+    exceeds the credit by more than the stream's cost.  The card's
+    credit is 0 (nothing hides), so mid-df phrases stream beside a device
+    batch as alone; the reference's credit kept 24 of them on the host.
+    Under any credit: 256 stream, nothing streams without the model's
+    inputs, and the credit never re-enables a stream the budget refused."""
+    _with_routing(monkeypatch, constants)
     mid = _FakeStats({"a": 300_000, "b": 300_000})
     plans = _pplans([("a", "b")] * 24)
     assert ps.want_stream(24, plans=plans, stats=mid)
     ov = ps.estimate_device_batch_ms(mid, 232)
+    if constants == "card":
+        assert ov == 0.0
+        assert ps.want_stream(24, plans=plans, stats=mid, overlap_ms=ov)
+        # a credit as large as the host estimate keeps them on the host
+        ov = ps.estimate_host_ms(plans, mid)
     assert ov > 0
     assert not ps.want_stream(24, plans=plans, stats=mid, overlap_ms=ov)
     many = _pplans([("a", "b")] * 256)
@@ -657,14 +733,42 @@ def test_want_stream_respects_residency_budget(monkeypatch):
     assert ps.want_stream(256, plans=plans, stats=big)
 
 
-def test_want_stream_model_overrides_auto_min():
+@pytest.mark.parametrize("constants", ["card", "reference"])
+def test_want_stream_model_overrides_auto_min(constants, monkeypatch):
+    _with_routing(monkeypatch, constants)
     n = ps.PHRASE_AUTO_MIN + 32
     plans = _pplans([("a", "b")] * n)
+    light = {"card": (30, 90), "reference": (300, 900)}[constants]
     assert not ps.want_stream(n, plans=plans,
-                              stats=_FakeStats({"a": 300, "b": 900}))
+                              stats=_FakeStats(dict(zip("ab", light))))
     assert ps.want_stream(n, plans=plans,
                           stats=_FakeStats({"a": 963_000, "b": 999_000}))
     assert ps.want_stream(n)
+
+
+def test_cost_model_reduces_to_the_reference_form(monkeypatch):
+    """With the reference's constants, the port's host and stream
+    estimates equal the reference's on the same plans and stats, bit for
+    bit (slop and dead phrases included); with the card's, the added
+    terms count, and the overlap credit is 0 where the reference's is
+    not."""
+    stats = _FakeStats({"a": 40_000, "b": 300_000, "c": 0, "d": 7})
+    pairs = [("a", "b"), ("b", "a", "d"), ("a", "c"), ("d", "b")]
+    plans = _pplans(pairs)
+    ref_plans = [_phrase_plan(list(p)) for p in pairs]
+    ref_plans.append(_phrase_plan(["a", "b"], slop=2))
+    plans.append(to_port_plan(ref_plans[-1]))
+    card = (ps.estimate_host_ms(plans, stats),
+            ps.estimate_stream_ms(stats, 5, plans))
+    assert ps.estimate_device_batch_ms(stats, 232, token_share=0.5) == 0.0
+    assert ref_ps.estimate_device_batch_ms(stats, 232, token_share=0.5) > 0
+    _with_routing(monkeypatch, "reference")
+    got = (ps.estimate_host_ms(plans, stats),
+           ps.estimate_stream_ms(stats, 5, plans))
+    want = (ref_ps.estimate_host_ms(ref_plans, stats),
+            ref_ps.estimate_stream_ms(stats, 5))
+    assert got == want
+    assert card != got
 
 
 def test_pack_cached_and_invalidated_on_delete(segs):

@@ -26,7 +26,7 @@ from fugu_tpu_torch.engine.named_index import NamedIndex
 from fugu_tpu_torch.index.schema import DOCS_SCHEMA as PORT_DOCS_SCHEMA
 from fugu_tpu_torch.index.schema import IndexType as PortIndexType
 from fugu_tpu_torch.index.segment import SegmentBuilder
-from fugu_tpu_torch.ops import oracle, residency
+from fugu_tpu_torch.ops import oracle, phrase_stream, residency
 
 torch.set_num_threads(1)
 
@@ -97,9 +97,17 @@ def hybrid_engine(monkeypatch):
     monkeypatch.setattr(named_index_module, "SMALL_SEGMENT_MAX_DOCS", 0)
 
 
+@pytest.fixture()
+def host_phrases(monkeypatch):
+    """The phrases take the host matcher: the stream priced out, as the
+    card's routing constants would stream this corpus's phrases."""
+    monkeypatch.setattr(phrase_stream, "STREAM_FIXED_MS", float("inf"))
+
+
 @pytest.mark.parametrize("limit", [10, 100])
 def test_named_index_matches_reference_and_oracle(namespace, limit,
-                                                  hybrid_engine):
+                                                  hybrid_engine,
+                                                  host_phrases):
     routes = matches_reference_and_oracle(namespace, limit)
     # every engine of the hybrid chain took part
     assert routes["phase_a"] > 0 and routes["host_only"] > 0
@@ -107,7 +115,8 @@ def test_named_index_matches_reference_and_oracle(namespace, limit,
 
 
 @pytest.mark.parametrize("limit", [10, 100])
-def test_named_index_small_segment_engine_matches(namespace, limit):
+def test_named_index_small_segment_engine_matches(namespace, limit,
+                                                  host_phrases):
     """The size constant at its default: the small-segment engine takes
     every plan without a phrase."""
     routes = matches_reference_and_oracle(namespace, limit)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from fugu_tpu.index.schema import DOCS_SCHEMA as REF_DOCS_SCHEMA
 from fugu_tpu.index.segment import SegmentBuilder as RefSegmentBuilder
 from fugu_tpu.ops import oracle as ref_oracle
@@ -29,7 +30,8 @@ from fugu_tpu_torch.index.manifest import Manifest, save_segment
 from fugu_tpu_torch.index.schema import IndexType
 from fugu_tpu_torch.tools import dump_oracle_golden, phrase_eligibility
 from fugu_tpu_torch.tools import live_load, phrase_cost_validate as pcv
-from fugu_tpu_torch.tools import residency_live, slop_ab
+from fugu_tpu_torch.tools import residency_live, routing_fit, slop_ab
+from test_torch_phrase_stream import reference_routing
 
 torch.set_num_threads(1)
 
@@ -141,16 +143,28 @@ def _ref_segment(n_docs, zipf_s, mean_len):
     return b.build()
 
 
+#: the card's decisions on the cost tool's batches at 3,000 docs
+#: (selective16, heavy16, mixed32, heavy160), with the port's constants
+CARD_DECISIONS = {"home": [False, True, True, True],
+                  "flat": [False, False, False, False]}
+
+
+@pytest.mark.parametrize("constants", ["reference", "card"])
 @pytest.mark.parametrize("host_ns", [None, 1e7],
                          ids=["fitted", "host-expensive"])
 @pytest.mark.parametrize("corpus", pcv.CORPORA, ids=lambda c: c[0])
 def test_phrase_cost_routes_as_the_reference(cache, corpus, host_ns,
-                                             monkeypatch):
-    """On each corpus and batch: the same plans, the same two cost
-    estimates and the same ``want_stream`` decision as the reference
-    tool's batches through the reference's router; with the host cost
-    raised on both sides, every batch above the minimum streams."""
+                                             constants, monkeypatch):
+    """On each corpus and batch: the same plans as the reference tool's.
+    With the reference's constants patched into the port (its own terms
+    at the values that reduce the model to the reference's form), the
+    same two cost estimates and the same ``want_stream`` decision as the
+    reference's router; with the card's constants, the card's decisions.
+    With the host cost raised (on both sides), every batch streams."""
     tag, zipf_s, mean_len = corpus
+    if constants == "reference":
+        for name, value in reference_routing().items():
+            monkeypatch.setattr(phrase_stream, name, value)
     if host_ns is not None:
         for mod in (phrase_stream, ref_phrase_stream):
             monkeypatch.setattr(mod, "HOST_NS_PER_MIN_POSTING", host_ns)
@@ -166,14 +180,23 @@ def test_phrase_cost_routes_as_the_reference(cache, corpus, host_ns,
         assert name == ref_name
         assert [repr(p) for p in plans] == [repr(p) for p in ref_plans]
         got = pcv.decision(plans, stats)
-        assert got["routed_stream"] == ref_phrase_stream.want_stream(
-            len(ref_plans), plans=ref_plans, stats=ref_stats)
-        assert got["host_est_ms"] == ref_phrase_stream.estimate_host_ms(
-            ref_plans, ref_stats)
-        assert got["stream_est_ms"] == ref_phrase_stream.estimate_stream_ms(
-            ref_stats, len(ref_plans))
+        assert got["routed_stream"] == (
+            got["host_est_ms"] > got["stream_est_ms"])
+        if constants == "reference":
+            assert got["routed_stream"] == ref_phrase_stream.want_stream(
+                len(ref_plans), plans=ref_plans, stats=ref_stats)
+            assert got["host_est_ms"] == ref_phrase_stream.estimate_host_ms(
+                ref_plans, ref_stats)
+            assert got["stream_est_ms"] == (
+                ref_phrase_stream.estimate_stream_ms(ref_stats,
+                                                     len(ref_plans)))
         decided.append(got["routed_stream"])
-    assert decided == ([True] * 4 if host_ns else [False] * 4)
+    if host_ns:
+        assert decided == [True] * 4
+    elif constants == "reference":
+        assert decided == [False] * 4
+    else:
+        assert decided == CARD_DECISIONS[tag]
 
 
 def test_phrase_cost_main_on_the_cpu(cache, capsys):
@@ -187,6 +210,130 @@ def test_phrase_cost_main_on_the_cpu(cache, capsys):
         assert p["host_ms"] > 0 and p["stream_ms"] > 0
         assert p["ok"] == (p["near_crossover"]
                            or p["routed_stream"] == p["measured_stream_wins"])
+        n = {"selective16": 16, "heavy16": 16, "mixed32": 32,
+             "heavy160": 160}[p["batch"]]
+        assert len(p["host_plan_ms"]) == len(p["plan_dfs"]) == n
+        assert len(p["verify_plan_ms"]) == n
+        assert sum(p["host_plan_ms"]) <= p["host_ms"] * 1.5 + 5.0
+        assert len(p["stream_split_ms"]) == 3
+
+
+def test_routing_fit_recovers_the_constants(tmp_path, capsys):
+    """Readings made by the cost model itself at known constants (a cost
+    tool line and an overlap line, the phrases' dfs drawn from a seed):
+    ``routing_fit`` recovers those constants (the verify's half point on
+    its grid), finds every decision right, and fits the reference's form
+    with the added terms at 0."""
+    rng = np.random.default_rng(5)
+    truth = {"HOST_NS_PER_MIN_POSTING": 20.0, "HOST_NS_PER_INTER_DOC": 30.0,
+             "HOST_NS_PER_OTHER_POSTING": 8.0,
+             "HOST_MS_PER_MATCHING_PHRASE": 0.2, "STREAM_FIXED_MS": 0.5,
+             "STREAM_MS_PER_PHRASE": 0.05, "STREAM_VERIFY_MS": 1.5,
+             "STREAM_VERIFY_HALF_DOCS": 1000.0}
+    old = {k: getattr(phrase_stream, k) for k in truth}
+    points = []
+    try:
+        for k, v in truth.items():
+            setattr(phrase_stream, k, v)
+        for i, (docs, n, hi) in enumerate([(500_000, 16, 300_000),
+                                           (500_000, 32, 3_000),
+                                           (1_000_000, 160, 900_000),
+                                           (1_000_000, 8, 2_000),
+                                           (200_000, 64, 50_000)]):
+            dfs = rng.integers(1, hi, size=(n, 2)).tolist()
+            b = routing_fit.batch("x", docs, docs * 55, dfs, 0.0, 0.0)
+            each = [phrase_stream.estimate_host_ms([p], b["stats"])
+                    for p in b["plans"]]
+            points.append({
+                "corpus": "c", "batch": f"b{i}", "docs": docs,
+                "tokens": docs * 55, "plan_dfs": dfs,
+                "host_ms": phrase_stream.estimate_host_ms(b["plans"],
+                                                          b["stats"]),
+                "stream_ms": phrase_stream.estimate_stream_ms(
+                    b["stats"], n, b["plans"]),
+                "host_plan_ms": each,
+                "verify_plan_ms": [None if j % 2 else 1.0
+                                   for j in range(n)]})
+    finally:
+        for k, v in old.items():
+            setattr(phrase_stream, k, v)
+    overlap = {"device_ms": 90.0, "device_plans": {"10": 216},
+               "docs": 1_000_000, "tokens": 55_000_000,
+               "mix": dict(points[3], phrases=8, hidden_ms=-20.0)}
+    # an overlap line without the phrases' dfs gives no batch
+    bare = dict(overlap, mix={"phrases": 24, "hidden_ms": 600.0})
+    (tmp_path / "costval.out").write_text(
+        "log line\n" + json.dumps({"ok": True, "points": points}) + "\n")
+    (tmp_path / "mix.out").write_text(json.dumps(overlap) + "\n"
+                                      + json.dumps(bare) + "\n")
+    assert routing_fit.main([str(tmp_path / "costval.out"),
+                             str(tmp_path / "mix.out")]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for k, v in truth.items():
+        assert out["fitted"][k] == pytest.approx(v, rel=1e-6), k
+    assert out["all_ok"]
+    assert len(out["batches"]) == 6
+    ref = out["reference_form"]
+    assert [r["batch"] for r in ref["batches"]] == [
+        r["batch"] for r in out["batches"]]
+    for k in ("HOST_NS_PER_OTHER_POSTING", "HOST_MS_PER_MATCHING_PHRASE",
+              "STREAM_VERIFY_MS"):
+        assert ref["fitted"][k] == 0.0
+    assert ref["fitted"]["HOST_NS_PER_MIN_POSTING"] > 0
+    assert ref["all_ok"] == all(r["ok"] for r in ref["batches"])
+    # the reference form's decisions were taken with its constants, and
+    # the module's are back
+    assert phrase_stream.STREAM_VERIFY_MS == old["STREAM_VERIFY_MS"]
+    bins = out["by_intersection"]
+    assert sum(row[1] for row in bins) == sum(
+        len(p["plan_dfs"]) for p in points)
+    assert [row[0] for row in bins] == sorted(row[0] for row in bins)
+    assert all(0.0 <= row[3] <= 1.0 and row[2] > 0 for row in bins)
+    for row in out["batches"]:
+        assert row["routed_stream"] == (
+            row["host_est_ms"] > row["stream_est_ms"])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_routing_fit_nnls_meets_its_optimality_conditions(seed):
+    """``routing_fit.nnls`` on a random system with a few unknowns: no
+    negative value, and the conditions of the non-negative optimum hold
+    (the gradient is 0 on each positive unknown and not negative on each
+    unknown at 0); a system with a non-negative exact solution gives it
+    back."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(12, 4))
+    y = rng.normal(size=12)
+    x = routing_fit.nnls(a, y)
+    grad = a.T @ (a @ x - y)
+    assert (x >= 0).all()
+    assert np.allclose(grad[x > 0], 0.0, atol=1e-9)
+    assert (grad[x == 0] >= -1e-9).all()
+    truth = np.array([0.5, 0.0, 2.0, 1.5])
+    assert np.allclose(routing_fit.nnls(np.abs(a), np.abs(a) @ truth),
+                       truth)
+
+
+def test_smoke_routing_phase_on_the_cpu(tmp_path):
+    """The smoke's routing line on a 3,000-doc segment's mix: the
+    routes given, the three estimates with the router's decision, and
+    both sides' measured ms."""
+    seg = chip_smoke.build_corpus(3000, 7, 3000)
+    stats = oracle.IndexStats([seg])
+    mix = chip_smoke.make_query_mix(seg)
+    line = chip_smoke.phase_routing(seg, stats, mix,
+                                    {"host_only": 72, "phase_a": 600},
+                                    CPU, "cpu")
+    n = sum(c == "phrase" for c, _p, _l in mix)
+    assert line["phase"] == "routing" and line["phrases"] == n == 24
+    assert line["routes"] == {"phrase_stream": 0, "host_only": 72}
+    assert line["device_plans"] == sum(
+        lim == 10 and not p.host_only for _c, p, lim in mix)
+    assert line["credit_est_ms"] == 0.0
+    assert line["routed_stream"] == (line["host_est_ms"]
+                                     > line["stream_est_ms"])
+    assert line["host_ms"] > 0 and line["stream_ms"] > 0
+    assert len(line["stream_split_ms"]) == 3
 
 
 def test_smoke_bench_and_residency_phases_on_the_cpu(tmp_path):
@@ -335,6 +482,9 @@ def test_golden_queries_through_named_index_equal_the_fixture(
     monkeypatch.setattr(named_index, "DEVICE_MIN_ENTRIES", 1)
     if switch:
         monkeypatch.setenv("FUGU_DEVICE_PHRASE", switch)
+        # the device phrase path takes what the stream declines: the
+        # stream priced out, the phrases reach it at any routing
+        monkeypatch.setattr(phrase_stream, "STREAM_FIXED_MS", float("inf"))
     else:
         monkeypatch.delenv("FUGU_DEVICE_PHRASE", raising=False)
     golden = json.loads(GOLDEN.read_text())
