@@ -12,6 +12,7 @@ import enum
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from fugu_tpu_torch import telemetry
 from fugu_tpu_torch.engine import facets as facet_ops
 from fugu_tpu_torch.engine import queryparser
 from fugu_tpu_torch.engine.named_index import NamedIndex
@@ -32,6 +33,17 @@ class FuguSearchResult:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+class BatchPage(list):
+    """One search's page of results from :meth:`Dataset.search_many`,
+    with the sequence number of the engine batch that served it."""
+
+    __slots__ = ("batch",)
+
+    def __init__(self, results, batch: int):
+        super().__init__(results)
+        self.batch = batch
 
 
 @dataclasses.dataclass
@@ -348,48 +360,62 @@ class Dataset:
     ) -> List[List[FuguSearchResult]]:
         """Batched search: one device dispatch per bucket for the whole
         query batch (the serving-throughput path; no reference analog —
-        Tantivy executes queries one at a time)."""
-        self._touch()
-        segs = self._read_snapshot(self._docs)
-        plans = []
-        metas = []
-        for query, filters in queries:
-            parsed = parse_filters(filters)
-            patterns = [
-                f.path.lower() for f in parsed if f.operator is FilterOperator.WILDCARD
+        Tantivy executes queries one at a time).
+
+        Each page returned is a :class:`BatchPage` that names the
+        ``engine.batch`` span which served it."""
+        batch = telemetry.next_batch()
+        with telemetry.span("engine", "batch", observe=False, batch=batch,
+                            size=len(queries)):
+            self._touch()
+            segs = self._read_snapshot(self._docs)
+            plans = []
+            metas = []
+            with telemetry.span("engine", "plan"):
+                for query, filters in queries:
+                    parsed = parse_filters(filters)
+                    patterns = [
+                        f.path.lower() for f in parsed
+                        if f.operator is FilterOperator.WILDCARD
+                    ]
+                    non_wildcard = [
+                        f
+                        for f, p in zip(filters, parsed)
+                        if p.operator is not FilterOperator.WILDCARD
+                    ]
+                    plans.append(
+                        self.build_search_plan(query, non_wildcard, bool(patterns))
+                    )
+                    metas.append(patterns)
+            offset = page * per_page
+            out: List[List[FuguSearchResult]] = []
+            limits = [
+                (offset + per_page) * 10 if patterns else offset + per_page
+                for patterns in metas
             ]
-            non_wildcard = [
-                f
-                for f, p in zip(filters, parsed)
-                if p.operator is not FilterOperator.WILDCARD
-            ]
-            plans.append(self.build_search_plan(query, non_wildcard, bool(patterns)))
-            metas.append(patterns)
-        offset = page * per_page
-        out: List[List[FuguSearchResult]] = []
-        limits = [
-            (offset + per_page) * 10 if patterns else offset + per_page
-            for patterns in metas
-        ]
-        max_limit = max(limits) if limits else per_page
-        batch_hits = self._docs.search_topk_batch(plans, max_limit, segments=segs)
-        for hits, patterns, limit in zip(batch_hits, metas, limits):
-            results: List[FuguSearchResult] = []
-            for hit in hits[:limit]:
-                result = self._convert_hit(hit, segs)
-                if patterns:
-                    if result.facets and any(
-                        pat in facet.lower()
-                        for facet in result.facets
-                        for pat in patterns
-                    ):
-                        results.append(result)
-                else:
-                    results.append(result)
-                if len(results) >= offset + per_page:
-                    break
-            out.append(results[offset : offset + per_page])
-        return out
+            max_limit = max(limits) if limits else per_page
+            with telemetry.span("engine", "route"):
+                batch_hits = self._docs.search_topk_batch(
+                    plans, max_limit, segments=segs
+                )
+            with telemetry.span("engine", "convert"):
+                for hits, patterns, limit in zip(batch_hits, metas, limits):
+                    results: List[FuguSearchResult] = []
+                    for hit in hits[:limit]:
+                        result = self._convert_hit(hit, segs)
+                        if patterns:
+                            if result.facets and any(
+                                pat in facet.lower()
+                                for facet in result.facets
+                                for pat in patterns
+                            ):
+                                results.append(result)
+                        else:
+                            results.append(result)
+                        if len(results) >= offset + per_page:
+                            break
+                    out.append(BatchPage(results[offset : offset + per_page], batch))
+            return out
 
     def build_search_plan(
         self, query: str, non_wildcard_filters: Sequence[str], has_wildcard: bool

@@ -61,7 +61,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from fugu_tpu_torch import cuda_build
+from fugu_tpu_torch import cuda_build, telemetry
 from fugu_tpu_torch.index.segment import (
     BM_BLOCK_DOCS,
     FACET_FIELD_KEY,
@@ -861,100 +861,111 @@ def batch_search(
     """
     from fugu_tpu_torch.ops.block_scorer import BLOCK as B_BLOCK, MAX_K
 
-    results: List[Optional[List[Tuple[float, int]]]] = [None] * len(plans)
-    kinds = {}
-    for i, p in enumerate(plans):
-        if limits[i] > MAX_K:
-            continue
-        kind = _classify(p)
-        if kind is not None and has_nonpositive_weight(p, stats):
-            kind = None  # 'scores > 0 == matched' breaks; host fallback
-        if kind is not None:
-            kinds[i] = kind
-    # narrow-kind plans (pure/neg/gate) batch first so they ride narrow
-    # (no-count) streams; count lanes double phase A's work and only
-    # count-needing batches should pay for them
-    elig = sorted(kinds, key=lambda i: (kinds[i] not in NARROW_KINDS, i))
-    # a phase-A stream needs a real batch to pay for itself; on the CPU
-    # (tests) every batch takes it, so small batches reach phase A too
-    if len(elig) < (1 if device.type == "cpu" else MIN_BATCH):
-        return results
+    with telemetry.span("two_phase", "stage"):
+        results: List[Optional[List[Tuple[float, int]]]] = [None] * len(plans)
+        kinds = {}
+        for i, p in enumerate(plans):
+            if limits[i] > MAX_K:
+                continue
+            kind = _classify(p)
+            if kind is not None and has_nonpositive_weight(p, stats):
+                kind = None  # 'scores > 0 == matched' breaks; host fallback
+            if kind is not None:
+                kinds[i] = kind
+        # narrow-kind plans (pure/neg/gate) batch first so they ride narrow
+        # (no-count) streams; count lanes double phase A's work and only
+        # count-needing batches should pay for them
+        elig = sorted(kinds, key=lambda i: (kinds[i] not in NARROW_KINDS, i))
+        # a phase-A stream needs a real batch to pay for itself; on the CPU
+        # (tests) every batch takes it, so small batches reach phase A too
+        if len(elig) < (1 if device.type == "cpu" else MIN_BATCH):
+            return results
 
-    pack = segment.block_major(stats, device)
-    k1 = plans[elig[0]].k1
-    batches, batch_terms = plan_batches(plans, elig, kinds, pack.tid_of)
-    batches, batch_terms = _merge_streams(
-        batches, batch_terms, kinds, plans, pack.tid_of
-    )
+        pack = segment.block_major(stats, device)
+        k1 = plans[elig[0]].k1
+        batches, batch_terms = plan_batches(plans, elig, kinds, pack.tid_of)
+        batches, batch_terms = _merge_streams(
+            batches, batch_terms, kinds, plans, pack.tid_of
+        )
 
-    nb = pack.n_blocks
-    pending = []
-    shifts: Dict[int, float] = {}  # "shift" plans: constant facet score
-    for q_idx, terms in zip(batches, batch_terms):
-        u_pad = next((u for u in U_BUCKETS if len(terms) <= u), None)
-        if u_pad is None:
-            continue  # single over-wide query set: block-scorer fallback
-        b_pad = next(v for v in B_BUCKETS if len(q_idx) <= v)
-        wide = any(kinds[i] not in NARROW_KINDS for i in q_idx)
-        eff = _effective_kinds(plans, kinds, q_idx, wide)
-        # bit-pack two queries' count columns per lane at b_pad = 256
-        packed = False
-        if wide and b_pad >= _PACK_MIN_B:
-            order = _pack_order(q_idx, plans, pack.tid_of, b_pad // 2)
-            if order is not None:
-                q_idx = order
-                packed = True
-        # lane-concat [weights | must-counts]: one stream serves both the
-        # score sum and the constraint count (wide batches only)
-        w2, nmust, tid_arr = stage_batch_weights(
-            plans, eff, q_idx, terms, stats, pack.tid_of, b_pad, wide,
-            k1, shifts, packed=packed,
-        )
-        slot_of = np.full(max(pack.n_terms, 1), -1, dtype=np.int32)
-        for t, slot in terms.items():
-            slot_of[t] = slot
-        fine = _fine_for_stream(q_idx, limits)
-        nz_off, nz = weight_lists(torch.from_numpy(w2).to(torch.bfloat16))
-        amax = phasea(
-            pack.d_doc_offs,
-            pack.d_doc,
-            pack.d_tid,
-            pack.d_con,
-            nz_off.to(device),
-            nz.to(device),
-            w2.shape[1],
-            torch.from_numpy(slot_of).to(device),
-            torch.from_numpy(nmust[0]).to(device),
-            fine,
-        )
-        if any(i is not None and kinds[i] == "upper" for i in q_idx):
-            # "upper" bounds need the raw per-block maxima on the host
-            # (wave-1 ordering + the post-wave-1 re-threshold)
-            pending.append(("full", q_idx, (amax,), fine))
-        else:
-            # kth + margin threshold on the device; only the candidate
-            # mask and the finite counts come back to the host
-            k_top = min(128, nb * fine)
-            shift_v = np.zeros(b_pad, dtype=np.float32)
-            limidx = np.full(b_pad, -1, dtype=np.int32)
-            margin_v = np.zeros(b_pad, dtype=np.float32)
-            for qi, i in enumerate(q_idx):
-                if i is None:
-                    continue
-                shift_v[qi] = shifts.get(i, 0.0)
-                limidx[qi] = limits[i] - 1 if limits[i] <= k_top else -1
-                # key on the EFFECTIVE staging kind: a "gate" plan folded
-                # into a wide stream restages as shift/exact (no GATE_BIG
-                # terms in its maxima)
-                if eff[i] == "gate":
-                    margin_v[qi] = GATE_MARGIN
-            mask, count = postproc(
-                amax,
-                torch.from_numpy(shift_v).to(device),
-                torch.from_numpy(limidx).to(device),
-                torch.from_numpy(margin_v).to(device),
+        nb = pack.n_blocks
+        pending = []
+        shifts: Dict[int, float] = {}  # "shift" plans: constant facet score
+        for q_idx, terms in zip(batches, batch_terms):
+            u_pad = next((u for u in U_BUCKETS if len(terms) <= u), None)
+            if u_pad is None:
+                continue  # single over-wide query set: block-scorer fallback
+            b_pad = next(v for v in B_BUCKETS if len(q_idx) <= v)
+            wide = any(kinds[i] not in NARROW_KINDS for i in q_idx)
+            eff = _effective_kinds(plans, kinds, q_idx, wide)
+            # bit-pack two queries' count columns per lane at b_pad = 256
+            packed = False
+            if wide and b_pad >= _PACK_MIN_B:
+                order = _pack_order(q_idx, plans, pack.tid_of, b_pad // 2)
+                if order is not None:
+                    q_idx = order
+                    packed = True
+            # lane-concat [weights | must-counts]: one stream serves both the
+            # score sum and the constraint count (wide batches only)
+            w2, nmust, tid_arr = stage_batch_weights(
+                plans, eff, q_idx, terms, stats, pack.tid_of, b_pad, wide,
+                k1, shifts, packed=packed,
             )
-            pending.append(("compact", q_idx, (mask, count), fine))
+            slot_of = np.full(max(pack.n_terms, 1), -1, dtype=np.int32)
+            for t, slot in terms.items():
+                slot_of[t] = slot
+            fine = _fine_for_stream(q_idx, limits)
+            nz_off, nz = weight_lists(torch.from_numpy(w2).to(torch.bfloat16))
+            telemetry.count(
+                "fugu_h2d_bytes_total",
+                nz_off.nbytes + nz.nbytes + slot_of.nbytes + nmust[0].nbytes,
+                site="phase_a",
+            )
+            amax = phasea(
+                pack.d_doc_offs,
+                pack.d_doc,
+                pack.d_tid,
+                pack.d_con,
+                nz_off.to(device),
+                nz.to(device),
+                w2.shape[1],
+                torch.from_numpy(slot_of).to(device),
+                torch.from_numpy(nmust[0]).to(device),
+                fine,
+            )
+            if any(i is not None and kinds[i] == "upper" for i in q_idx):
+                # "upper" bounds need the raw per-block maxima on the host
+                # (wave-1 ordering + the post-wave-1 re-threshold)
+                pending.append(("full", q_idx, (amax,), fine))
+            else:
+                # kth + margin threshold on the device; only the candidate
+                # mask and the finite counts come back to the host
+                k_top = min(128, nb * fine)
+                shift_v = np.zeros(b_pad, dtype=np.float32)
+                limidx = np.full(b_pad, -1, dtype=np.int32)
+                margin_v = np.zeros(b_pad, dtype=np.float32)
+                for qi, i in enumerate(q_idx):
+                    if i is None:
+                        continue
+                    shift_v[qi] = shifts.get(i, 0.0)
+                    limidx[qi] = limits[i] - 1 if limits[i] <= k_top else -1
+                    # key on the EFFECTIVE staging kind: a "gate" plan folded
+                    # into a wide stream restages as shift/exact (no GATE_BIG
+                    # terms in its maxima)
+                    if eff[i] == "gate":
+                        margin_v[qi] = GATE_MARGIN
+                telemetry.count(
+                    "fugu_h2d_bytes_total",
+                    shift_v.nbytes + limidx.nbytes + margin_v.nbytes,
+                    site="postproc",
+                )
+                mask, count = postproc(
+                    amax,
+                    torch.from_numpy(shift_v).to(device),
+                    torch.from_numpy(limidx).to(device),
+                    torch.from_numpy(margin_v).to(device),
+                )
+                pending.append(("compact", q_idx, (mask, count), fine))
 
     # phase B: per-query candidate 2048-blocks from the maxima
     sub_per_big = B_BLOCK // BM_BLOCK_DOCS
@@ -1001,96 +1012,105 @@ def batch_search(
     for tag, q_idx, arrs, fine in pending:
         fine_sub = sub_per_big * fine
         if tag == "compact":
-            mask = arrs[0].cpu().numpy()     # [nb * fine, b_pad]
-            count = arrs[1].cpu().numpy()    # [b_pad]
+            with telemetry.span("two_phase", "fetch"):
+                mask = arrs[0].cpu().numpy()     # [nb * fine, b_pad]
+                count = arrs[1].cpu().numpy()    # [b_pad]
+                telemetry.count("fugu_d2h_bytes_total",
+                                mask.nbytes + count.nbytes, site="postproc")
+            with telemetry.span("two_phase", "candidates"):
+                for qi, i in enumerate(q_idx):
+                    if i is None:
+                        continue
+                    if count[qi] == 0:
+                        results[i] = []  # no doc scores any positive clause
+                        continue
+                    cand = np.nonzero(mask[:, qi])[0]
+                    wave1_lists[i] = np.unique(cand // fine_sub).astype(np.int64)
+                    wave1_idx.append(i)
+            continue
+        with telemetry.span("two_phase", "fetch"):
+            amax = arrs[0].cpu().numpy().reshape(nb * fine, -1)  # [NB*F, b_pad]
+            telemetry.count("fugu_d2h_bytes_total", amax.nbytes, site="phase_a")
+        with telemetry.span("two_phase", "candidates"):
             for qi, i in enumerate(q_idx):
                 if i is None:
                     continue
-                if count[qi] == 0:
+                col = amax[:, qi]
+                if i in shifts:  # add back the constant MUST-facet score
+                    col = np.where(np.isfinite(col), col + shifts[i], col)
+                finite = col[np.isfinite(col)]
+                if len(finite) == 0:
                     results[i] = []  # no doc scores any positive clause
                     continue
-                cand = np.nonzero(mask[:, qi])[0]
-                wave1_lists[i] = np.unique(cand // fine_sub).astype(np.int64)
+                lim = limits[i]
+                if kinds[i] != "upper":
+                    # "pure"/"exact": maxima are achievable doc scores, so
+                    # kth-of-maxima is a valid lower bound — one wave
+                    kth = (
+                        np.partition(-finite, lim - 1)[lim - 1] * -1
+                        if len(finite) >= lim
+                        else -np.inf
+                    )
+                    cand = np.nonzero(col >= thresh_of(kth))[0]
+                    wave1_lists[i] = np.unique(cand // fine_sub).astype(np.int64)
+                else:
+                    # "upper": maxima are only upper bounds; wave 1 scores
+                    # the best-bounded big-blocks to establish kth
+                    cols[i] = col
+                    fine_of[i] = fine
+                    n_big = (len(col) + fine_sub - 1) // fine_sub
+                    big_u = np.full(n_big * fine_sub, NEG_INF, dtype=col.dtype)
+                    big_u[: len(col)] = col
+                    big_u = big_u.reshape(n_big, fine_sub).max(axis=1)
+                    order = np.argsort(-big_u, kind="stable")
+                    take = order[: ROUND1_BLOCKS]
+                    wave1_lists[i] = np.sort(
+                        take[np.isfinite(big_u[take])]
+                    ).astype(np.int64)
                 wave1_idx.append(i)
-            continue
-        amax = arrs[0].cpu().numpy().reshape(nb * fine, -1)  # [NB*F, b_pad]
-        for qi, i in enumerate(q_idx):
-            if i is None:
-                continue
-            col = amax[:, qi]
-            if i in shifts:  # add back the constant MUST-facet score
-                col = np.where(np.isfinite(col), col + shifts[i], col)
-            finite = col[np.isfinite(col)]
-            if len(finite) == 0:
-                results[i] = []  # no doc scores any positive clause
-                continue
-            lim = limits[i]
-            if kinds[i] != "upper":
-                # "pure"/"exact": maxima are achievable doc scores, so
-                # kth-of-maxima is a valid lower bound — one wave
-                kth = (
-                    np.partition(-finite, lim - 1)[lim - 1] * -1
-                    if len(finite) >= lim
-                    else -np.inf
-                )
-                cand = np.nonzero(col >= thresh_of(kth))[0]
-                wave1_lists[i] = np.unique(cand // fine_sub).astype(np.int64)
-            else:
-                # "upper": maxima are only upper bounds; wave 1 scores
-                # the best-bounded big-blocks to establish kth
-                cols[i] = col
-                fine_of[i] = fine
-                n_big = (len(col) + fine_sub - 1) // fine_sub
-                big_u = np.full(n_big * fine_sub, NEG_INF, dtype=col.dtype)
-                big_u[: len(col)] = col
-                big_u = big_u.reshape(n_big, fine_sub).max(axis=1)
-                order = np.argsort(-big_u, kind="stable")
-                take = order[: ROUND1_BLOCKS]
-                wave1_lists[i] = np.sort(take[np.isfinite(big_u[take])]).astype(
-                    np.int64
-                )
-            wave1_idx.append(i)
 
     if not wave1_idx:
         return results
     wave1 = run_wave(wave1_idx, wave1_lists)
 
-    wave2_idx: List[int] = []
-    wave2_lists: Dict[int, np.ndarray] = {}
-    for i in wave1_idx:
-        hits1 = wave1[i]
-        if hits1 is None:  # block scorer declined: hand back to caller
-            results[i] = None
-            continue
-        if kinds[i] != "upper":
-            results[i] = hits1
-            continue
-        lim = limits[i]
-        col = cols[i]
-        kth = hits1[lim - 1][0] if len(hits1) >= lim else -np.inf
-        cand = np.nonzero(col >= thresh_of(kth))[0] if np.isfinite(kth) else (
-            np.nonzero(np.isfinite(col))[0]
-        )
-        rest = np.setdiff1d(
-            np.unique(cand // (sub_per_big * fine_of[i])).astype(np.int64),
-            wave1_lists[i],
-        )
-        if len(rest) == 0:
-            results[i] = hits1[:lim]
-        else:
-            wave2_idx.append(i)
-            wave2_lists[i] = rest
+    with telemetry.span("two_phase", "candidates"):
+        wave2_idx: List[int] = []
+        wave2_lists: Dict[int, np.ndarray] = {}
+        for i in wave1_idx:
+            hits1 = wave1[i]
+            if hits1 is None:  # block scorer declined: hand back to caller
+                results[i] = None
+                continue
+            if kinds[i] != "upper":
+                results[i] = hits1
+                continue
+            lim = limits[i]
+            col = cols[i]
+            kth = hits1[lim - 1][0] if len(hits1) >= lim else -np.inf
+            cand = np.nonzero(col >= thresh_of(kth))[0] if np.isfinite(kth) else (
+                np.nonzero(np.isfinite(col))[0]
+            )
+            rest = np.setdiff1d(
+                np.unique(cand // (sub_per_big * fine_of[i])).astype(np.int64),
+                wave1_lists[i],
+            )
+            if len(rest) == 0:
+                results[i] = hits1[:lim]
+            else:
+                wave2_idx.append(i)
+                wave2_lists[i] = rest
 
     if wave2_idx:
         wave2 = run_wave(wave2_idx, wave2_lists)
-        for i in wave2_idx:
-            hits2 = wave2[i]
-            if hits2 is None:
-                results[i] = None
-                continue
-            # waves partition doc space; (-score, doc) re-rank reproduces
-            # the single-phase scorer's global tie-break exactly
-            merged = list(wave1[i]) + list(hits2)
-            merged.sort(key=lambda sd: (-sd[0], sd[1]))
-            results[i] = merged[: limits[i]]
+        with telemetry.span("two_phase", "candidates"):
+            for i in wave2_idx:
+                hits2 = wave2[i]
+                if hits2 is None:
+                    results[i] = None
+                    continue
+                # waves partition doc space; (-score, doc) re-rank
+                # reproduces the single-phase scorer's global tie-break
+                merged = list(wave1[i]) + list(hits2)
+                merged.sort(key=lambda sd: (-sd[0], sd[1]))
+                results[i] = merged[: limits[i]]
     return results

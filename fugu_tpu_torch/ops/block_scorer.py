@@ -32,7 +32,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from fugu_tpu_torch import cuda_build
+from fugu_tpu_torch import cuda_build, telemetry
 from fugu_tpu_torch.index.segment import Segment
 from fugu_tpu_torch.ops import buckets
 from fugu_tpu_torch.ops.rescore import rescore_hits
@@ -324,74 +324,75 @@ def block_search_begin(
     for results; :func:`block_search_collect` fetches and assembles.
     Callers with several batches (the two-phase engine's per-limit wave
     groups) begin them all and collect once."""
-    results: List[Optional[List[Tuple[float, int]]]] = [None] * len(plans)
-    if limit > MAX_K:
-        return (results, [], limit, segment, plans, stats)
-    # extract at the next rung above the limit, so the host rescore sees
-    # slack candidates past the boundary: a last-ulp rounding flip at the
-    # k-th/(k+1)-th boundary must not exclude the true k-th doc.  At
-    # limit == MAX_K there is no headroom (documented zero-slack case).
-    k = buckets.k_extract(limit) or MAX_K
+    with telemetry.span("two_phase", "stage"):
+        results: List[Optional[List[Tuple[float, int]]]] = [None] * len(plans)
+        if limit > MAX_K:
+            return (results, [], limit, segment, plans, stats)
+        # extract at the next rung above the limit, so the host rescore sees
+        # slack candidates past the boundary: a last-ulp rounding flip at the
+        # k-th/(k+1)-th boundary must not exclude the true k-th doc.  At
+        # limit == MAX_K there is no headroom (documented zero-slack case).
+        k = buckets.k_extract(limit) or MAX_K
 
-    n_blocks = max((segment.doc_count + BLOCK - 1) // BLOCK, 1)
-    staged = []
-    for i, plan in enumerate(plans):
-        if plan.host_only:
-            continue
-        if has_nonpositive_weight(plan, stats):
-            continue  # 'scores > 0 == matched' breaks; host fallback
-        n_clauses = sum(len(g.clauses) for g in plan.groups)
-        # floor at 4: 1-term and 4-term queries share one staging width
-        # and one launch per batch
-        t_pad = max(buckets.t_bucket(max(n_clauses, 1)), 4)
-        if t_pad > 16 or len(plan.groups) > 32:
-            continue
-        args, must, mustnot, should, need_bits = stage_clauses(
-            segment, plan, stats, t_pad
-        )
-        if args is None:
-            # every clause had df == 0 (the >32-group case was already
-            # filtered above): no doc can score, the empty result is exact
-            results[i] = []
-            continue
-        staged.append((i, t_pad, args, must, mustnot, should, need_bits))
-
-    if not staged:
-        return (results, [], limit, segment, plans, stats)
-
-    by_t: dict = {}
-    for item in staged:
-        by_t.setdefault((item[1], item[6]), []).append(item)
-
-    pack = segment.device_pack(device)
-    e_doc_np = segment.e_doc
-    pending: list = []
-    # per-term block-offset tables are query-independent — cache them on
-    # the segment so repeated terms across a batch skip the searchsorted
-    offs_cache = segment.__dict__.setdefault("_block_offsets", {})
-
-    for (t_pad, need_bits), items in by_t.items():
-        rows = []
-        for (i, _t, args, must, mustnot, should, _nb) in items:
-            st, ct, nonempty = plan_block_tables(
-                e_doc_np, args, t_pad, n_blocks, must, offs_cache
+        n_blocks = max((segment.doc_count + BLOCK - 1) // BLOCK, 1)
+        staged = []
+        for i, plan in enumerate(plans):
+            if plan.host_only:
+                continue
+            if has_nonpositive_weight(plan, stats):
+                continue  # 'scores > 0 == matched' breaks; host fallback
+            n_clauses = sum(len(g.clauses) for g in plan.groups)
+            # floor at 4: 1-term and 4-term queries share one staging width
+            # and one launch per batch
+            t_pad = max(buckets.t_bucket(max(n_clauses, 1)), 4)
+            if t_pad > 16 or len(plan.groups) > 32:
+                continue
+            args, must, mustnot, should, need_bits = stage_clauses(
+                segment, plan, stats, t_pad
             )
-            if block_lists is not None and i in block_lists:
-                bl = np.asarray(block_lists[i], dtype=np.int64)
-                nonempty = bl[np.isin(bl, nonempty, assume_unique=True)]
-            rows.append((i, args, must, mustnot, should, st, ct, nonempty))
-        # rows group by a power-of-two block count, so one block-heavy
-        # row does not pad every row's tables and scratch to its size
-        by_nb: dict = {}
-        for r in rows:
-            nb_pad = 1 << (max(len(r[7]), 1) - 1).bit_length()
-            by_nb.setdefault(nb_pad, []).append(r)
-        for nb_pad, nb_rows in sorted(by_nb.items()):
-            step = max(SCRATCH_MAX_BYTES // (nb_pad * k * 8), 1)
-            for lo in range(0, len(nb_rows), step):
-                _dispatch_rows(nb_rows[lo:lo + step], nb_pad, t_pad, k,
-                               need_bits, pack, pending)
-    return (results, pending, limit, segment, plans, stats)
+            if args is None:
+                # every clause had df == 0 (the >32-group case was already
+                # filtered above): no doc can score, the empty result is exact
+                results[i] = []
+                continue
+            staged.append((i, t_pad, args, must, mustnot, should, need_bits))
+
+        if not staged:
+            return (results, [], limit, segment, plans, stats)
+
+        by_t: dict = {}
+        for item in staged:
+            by_t.setdefault((item[1], item[6]), []).append(item)
+
+        pack = segment.device_pack(device)
+        e_doc_np = segment.e_doc
+        pending: list = []
+        # per-term block-offset tables are query-independent — cache them on
+        # the segment so repeated terms across a batch skip the searchsorted
+        offs_cache = segment.__dict__.setdefault("_block_offsets", {})
+
+        for (t_pad, need_bits), items in by_t.items():
+            rows = []
+            for (i, _t, args, must, mustnot, should, _nb) in items:
+                st, ct, nonempty = plan_block_tables(
+                    e_doc_np, args, t_pad, n_blocks, must, offs_cache
+                )
+                if block_lists is not None and i in block_lists:
+                    bl = np.asarray(block_lists[i], dtype=np.int64)
+                    nonempty = bl[np.isin(bl, nonempty, assume_unique=True)]
+                rows.append((i, args, must, mustnot, should, st, ct, nonempty))
+            # rows group by a power-of-two block count, so one block-heavy
+            # row does not pad every row's tables and scratch to its size
+            by_nb: dict = {}
+            for r in rows:
+                nb_pad = 1 << (max(len(r[7]), 1) - 1).bit_length()
+                by_nb.setdefault(nb_pad, []).append(r)
+            for nb_pad, nb_rows in sorted(by_nb.items()):
+                step = max(SCRATCH_MAX_BYTES // (nb_pad * k * 8), 1)
+                for lo in range(0, len(nb_rows), step):
+                    _dispatch_rows(nb_rows[lo:lo + step], nb_pad, t_pad, k,
+                                   need_bits, pack, pending)
+        return (results, pending, limit, segment, plans, stats)
 
 
 def block_search_collect(handles):
@@ -400,22 +401,26 @@ def block_search_collect(handles):
     exact host rescore."""
     pending = [p for h in handles for p in h[1]]
     if pending:
-        top_s = torch.cat([p[1] for p in pending]).cpu().numpy()
-        top_d = torch.cat([p[2] for p in pending]).cpu().numpy()
+        with telemetry.span("two_phase", "fetch"):
+            top_s = torch.cat([p[1] for p in pending]).cpu().numpy()
+            top_d = torch.cat([p[2] for p in pending]).cpu().numpy()
+            telemetry.count("fugu_d2h_bytes_total",
+                            top_s.nbytes + top_d.nbytes, site="block_rows")
     row = 0
     out = []
-    for results, pend, limit, segment, plans, stats in handles:
-        for rows, _s, _d in pend:
-            for (i, *_rest) in rows:  # one row a plan
-                s, d = top_s[row], top_d[row]
-                row += 1
-                keep = np.isfinite(s) & (d != _INT_MAX)
-                hits = list(zip(s[keep].tolist(), d[keep].tolist()))
-                # scores are replaced with oracle-exact host floats and
-                # re-ranked, so ordering is bit-identical to the oracle
-                results[i] = rescore_hits(segment, plans[i], stats,
-                                          hits)[:limit]
-        out.append(results)
+    with telemetry.span("two_phase", "rescore"):
+        for results, pend, limit, segment, plans, stats in handles:
+            for rows, _s, _d in pend:
+                for (i, *_rest) in rows:  # one row a plan
+                    s, d = top_s[row], top_d[row]
+                    row += 1
+                    keep = np.isfinite(s) & (d != _INT_MAX)
+                    hits = list(zip(s[keep].tolist(), d[keep].tolist()))
+                    # scores are replaced with oracle-exact host floats and
+                    # re-ranked, so ordering is bit-identical to the oracle
+                    results[i] = rescore_hits(segment, plans[i], stats,
+                                              hits)[:limit]
+            out.append(results)
     return out
 
 
@@ -423,43 +428,50 @@ def _dispatch_rows(rows, nb_pad, t_pad, k, need_bits, pack, pending):
     """Stage and launch kernel rows sharing one (t_pad, nb_pad,
     need_bits) shape; the candidates stay on the device in ``pending``
     until the caller collects them."""
-    dev = pack.e_doc.device
-    n = len(rows)
-    block_ids = np.zeros((n, nb_pad), dtype=np.int32)
-    nblocks = np.zeros(n, dtype=np.int32)
-    starts = np.zeros((n, nb_pad, t_pad), dtype=np.int32)
-    counts = np.zeros((n, nb_pad, t_pad), dtype=np.int32)
-    weights = np.zeros((n, t_pad), dtype=np.float32)
-    c1 = np.ones((n, t_pad), dtype=np.float32)
-    c2 = np.zeros((n, t_pad), dtype=np.float32)
-    gbits = np.full((n, t_pad), -1, dtype=np.int32)
-    masks = np.zeros((n, 3), dtype=np.int32)
-    for bi, (i, args, must, mustnot, should, st, ct, nonempty) in enumerate(
-        rows
-    ):
-        nb = len(nonempty)
-        nblocks[bi] = nb
-        block_ids[bi, :nb] = nonempty
-        starts[bi, :nb] = st[nonempty]
-        counts[bi, :nb] = ct[nonempty]
-        weights[bi] = args.weights
-        c1[bi] = args.c1
-        c2[bi] = args.c2
-        for t in range(t_pad):
-            bits = int(args.gbits[t])
-            gbits[bi, t] = bits.bit_length() - 1 if bits else -1
-        masks[bi] = (mask_i32(must), mask_i32(mustnot), mask_i32(should))
+    with telemetry.span("two_phase", "stage"):
+        dev = pack.e_doc.device
+        n = len(rows)
+        block_ids = np.zeros((n, nb_pad), dtype=np.int32)
+        nblocks = np.zeros(n, dtype=np.int32)
+        starts = np.zeros((n, nb_pad, t_pad), dtype=np.int32)
+        counts = np.zeros((n, nb_pad, t_pad), dtype=np.int32)
+        weights = np.zeros((n, t_pad), dtype=np.float32)
+        c1 = np.ones((n, t_pad), dtype=np.float32)
+        c2 = np.zeros((n, t_pad), dtype=np.float32)
+        gbits = np.full((n, t_pad), -1, dtype=np.int32)
+        masks = np.zeros((n, 3), dtype=np.int32)
+        for bi, (i, args, must, mustnot, should, st, ct, nonempty) in enumerate(
+            rows
+        ):
+            nb = len(nonempty)
+            nblocks[bi] = nb
+            block_ids[bi, :nb] = nonempty
+            starts[bi, :nb] = st[nonempty]
+            counts[bi, :nb] = ct[nonempty]
+            weights[bi] = args.weights
+            c1[bi] = args.c1
+            c2[bi] = args.c2
+            for t in range(t_pad):
+                bits = int(args.gbits[t])
+                gbits[bi, t] = bits.bit_length() - 1 if bits else -1
+            masks[bi] = (mask_i32(must), mask_i32(mustnot), mask_i32(should))
 
-    def up(a):
-        return torch.from_numpy(a).to(dev)
+        def up(a):
+            return torch.from_numpy(a).to(dev)
 
-    top_s, top_d = score_rows(
-        up(nblocks), up(block_ids), up(starts), up(counts), up(weights),
-        up(c1), up(c2), up(gbits), up(masks),
-        pack.e_doc, pack.e_tffid, pack.tomb, need_bits, k,
-    )
-    # pad to K_OUT columns so every batch's candidates fetch as one
-    pad = K_OUT - top_s.shape[1]
-    top_s = torch.nn.functional.pad(top_s, (0, pad), value=float("-inf"))
-    top_d = torch.nn.functional.pad(top_d, (0, pad), value=_INT_MAX)
-    pending.append((rows, top_s, top_d))
+        telemetry.count(
+            "fugu_h2d_bytes_total",
+            sum(a.nbytes for a in (nblocks, block_ids, starts, counts, weights,
+                                   c1, c2, gbits, masks)),
+            site="block_rows",
+        )
+        top_s, top_d = score_rows(
+            up(nblocks), up(block_ids), up(starts), up(counts), up(weights),
+            up(c1), up(c2), up(gbits), up(masks),
+            pack.e_doc, pack.e_tffid, pack.tomb, need_bits, k,
+        )
+        # pad to K_OUT columns so every batch's candidates fetch as one
+        pad = K_OUT - top_s.shape[1]
+        top_s = torch.nn.functional.pad(top_s, (0, pad), value=float("-inf"))
+        top_d = torch.nn.functional.pad(top_d, (0, pad), value=_INT_MAX)
+        pending.append((rows, top_s, top_d))

@@ -164,6 +164,8 @@ async def _perform_search(state, namespace, query, filters, page, per_page):
     per_page = _clamp_per_page(per_page)
     with telemetry.Timer() as t, timed("fugu_search", namespace=namespace):
         results = await state.batcher.search(ds, query, filters, page, per_page)
+    # the request's span names the engine batch that served it
+    telemetry.annotate(batch=getattr(results, "batch", None))
     return _search_response(results, query, page, per_page, t.took_ms)
 
 
@@ -186,57 +188,62 @@ async def sayhi(request: web.Request) -> web.Response:
 
 async def query_text_get(request: web.Request) -> web.Response:
     with telemetry.server_span("/search", "GET"):
-        state = _state(request)
-        q = request.query.get("q")
-        if q is None:
-            return _json({"error": "missing query parameter `q`"}, status=400)
-        try:
-            limit = int(request.query.get("limit", 20))
-        except ValueError:
-            return _json({"error": "invalid `limit` parameter"}, status=400)
-        include_text = request.query.get("text", "false").lower() == "true"
-        namespace = request.query.get(
-            "namespace", state.db.config.default_namespace
-        )
+        with telemetry.span("front", "parse"):
+            state = _state(request)
+            q = request.query.get("q")
+            if q is None:
+                return _json({"error": "missing query parameter `q`"}, status=400)
+            try:
+                limit = int(request.query.get("limit", 20))
+            except ValueError:
+                return _json({"error": "invalid `limit` parameter"}, status=400)
+            include_text = request.query.get("text", "false").lower() == "true"
+            namespace = request.query.get(
+                "namespace", state.db.config.default_namespace
+            )
         try:
             payload = await _perform_search(state, namespace, q, [], 0, limit)
         except Exception as e:  # parse/engine errors -> 500 envelope
             return _json({"error": f"Search failed: {e}"}, status=_exc_status(e))
-        return _json_search(_strip_text(payload, include_text))
+        with telemetry.span("front", "respond"):
+            return _json_search(_strip_text(payload, include_text))
 
 
 async def query_text_path(request: web.Request) -> web.Response:
     with telemetry.server_span("/search/:query", "GET"):
-        state = _state(request)
-        query = urllib.parse.unquote(request.match_info["query"])
-        include_text = request.query.get("text", "false").lower() == "true"
-        namespace = request.query.get(
-            "namespace", state.db.config.default_namespace
-        )
+        with telemetry.span("front", "parse"):
+            state = _state(request)
+            query = urllib.parse.unquote(request.match_info["query"])
+            include_text = request.query.get("text", "false").lower() == "true"
+            namespace = request.query.get(
+                "namespace", state.db.config.default_namespace
+            )
         try:
             payload = await _perform_search(state, namespace, query, [], 0, 20)
         except Exception as e:  # parse/engine errors -> 500 envelope
             return _json({"error": f"Search failed: {e}"}, status=_exc_status(e))
-        return _json_search(_strip_text(payload, include_text))
+        with telemetry.span("front", "respond"):
+            return _json_search(_strip_text(payload, include_text))
 
 
 async def search_endpoint(request: web.Request) -> web.Response:
     """POST /search: FuguSearchQuery on the default namespace."""
     with telemetry.server_span("/search", "POST"):
-        state = _state(request)
-        try:
-            payload = _as_dict(await request.json())
-        except json.JSONDecodeError:
-            return _err("invalid JSON body", 400)
-        query = payload.get("query", "")
-        if not isinstance(query, str):
-            query = ""
-        filters = _filter_list(payload)
-        page, per_page = _page_params(payload)
-        ds = state.db.get_dataset(state.db.config.default_namespace)
-        if ds is None:
-            return _err("Default dataset not found")
-        per_page = _clamp_per_page(per_page)  # every search route clamps
+        with telemetry.span("front", "parse"):
+            state = _state(request)
+            try:
+                payload = _as_dict(await request.json())
+            except json.JSONDecodeError:
+                return _err("invalid JSON body", 400)
+            query = payload.get("query", "")
+            if not isinstance(query, str):
+                query = ""
+            filters = _filter_list(payload)
+            page, per_page = _page_params(payload)
+            ds = state.db.get_dataset(state.db.config.default_namespace)
+            if ds is None:
+                return _err("Default dataset not found")
+            per_page = _clamp_per_page(per_page)  # every search route clamps
         from fugu_tpu_torch.server.metrics import timed
 
         try:
@@ -248,38 +255,41 @@ async def search_endpoint(request: web.Request) -> web.Response:
                 )
         except Exception as e:  # engine errors -> 500 envelope
             return _err(f"Search failed: {e}", _exc_status(e))
-        return _json_search(
-            {
-                "status": "success",
-                "query": query,
-                "filters": filters,
-                "page": page,
-                "per_page": per_page,
-                "total": len(results),
-                "results": [r.to_dict() for r in results],
-                "took_ms": t.took_ms,
-            }
-        )
+        telemetry.annotate(batch=getattr(results, "batch", None))
+        with telemetry.span("front", "respond"):
+            return _json_search(
+                {
+                    "status": "success",
+                    "query": query,
+                    "filters": filters,
+                    "page": page,
+                    "per_page": per_page,
+                    "total": len(results),
+                    "results": [r.to_dict() for r in results],
+                    "took_ms": t.took_ms,
+                }
+            )
 
 
 async def search_namespace_post(request: web.Request) -> web.Response:
     """POST /search/{namespace} — drift fix for the reference CLI
     (cli.rs:352-356 posts {"query": q} here and got a 405)."""
     with telemetry.server_span("/search/:namespace", "POST"):
-        state = _state(request)
-        namespace = request.match_info["namespace"]
-        try:
-            payload = _as_dict(await request.json())
-        except json.JSONDecodeError:
-            return _err("invalid JSON body", 400)
-        query = payload.get("query", "")
-        if not isinstance(query, str):
-            query = ""
-        filters = _filter_list(payload)
-        page, per_page = _page_params(payload)
-        ds = state.db.get_dataset(namespace)
-        if ds is None:
-            return _err(f"Namespace '{namespace}' not found", 404)
+        with telemetry.span("front", "parse"):
+            state = _state(request)
+            namespace = request.match_info["namespace"]
+            try:
+                payload = _as_dict(await request.json())
+            except json.JSONDecodeError:
+                return _err("invalid JSON body", 400)
+            query = payload.get("query", "")
+            if not isinstance(query, str):
+                query = ""
+            filters = _filter_list(payload)
+            page, per_page = _page_params(payload)
+            ds = state.db.get_dataset(namespace)
+            if ds is None:
+                return _err(f"Namespace '{namespace}' not found", 404)
         from fugu_tpu_torch.server.metrics import timed
 
         try:
@@ -291,9 +301,11 @@ async def search_namespace_post(request: web.Request) -> web.Response:
                 )
         except Exception as e:
             return _err(f"Search failed: {e}", _exc_status(e))
-        return _json_search(
-            _search_response(results, query, page, _clamp_per_page(per_page), t.took_ms)
-        )
+        telemetry.annotate(batch=getattr(results, "batch", None))
+        with telemetry.span("front", "respond"):
+            return _json_search(
+                _search_response(results, query, page, _clamp_per_page(per_page), t.took_ms)
+            )
 
 
 async def query_json_post(request: web.Request) -> web.Response:
@@ -301,45 +313,46 @@ async def query_json_post(request: web.Request) -> web.Response:
     including the url-vs-body `text` flag conflict message and the
     include_data defaulting."""
     with telemetry.server_span("/search/json", "POST"):
-        state = _state(request)
-        try:
-            payload = _as_dict(await request.json())
-        except json.JSONDecodeError:
-            return _json({"error": "invalid JSON body"}, status=400)
-        if "query" not in payload or not isinstance(payload["query"], str):
-            return _json({"error": "missing `query`"}, status=400)
+        with telemetry.span("front", "parse"):
+            state = _state(request)
+            try:
+                payload = _as_dict(await request.json())
+            except json.JSONDecodeError:
+                return _json({"error": "invalid JSON body"}, status=400)
+            if "query" not in payload or not isinstance(payload["query"], str):
+                return _json({"error": "missing `query`"}, status=400)
 
-        url_text_raw = request.query.get("text")
-        body_text = payload.get("text")
-        url_text = (url_text_raw or "false").lower() == "true"
-        include_text = url_text if url_text_raw is not None else bool(body_text)
+            url_text_raw = request.query.get("text")
+            body_text = payload.get("text")
+            url_text = (url_text_raw or "false").lower() == "true"
+            include_text = url_text if url_text_raw is not None else bool(body_text)
 
-        developer_message = None
-        if url_text_raw is not None and body_text is not None and url_text != bool(body_text):
-            developer_message = (
-                "url and request body are set to different values; using url:true/false"
-            )
+            developer_message = None
+            if url_text_raw is not None and body_text is not None and url_text != bool(body_text):
+                developer_message = (
+                    "url and request body are set to different values; using url:true/false"
+                )
 
-        filters = _filter_list(payload)
-        page, per_page = _page_params(payload)
+            filters = _filter_list(payload)
+            page, per_page = _page_params(payload)
 
-        targeting = _is_targeting_conv_or_org(filters)
-        include_data = payload.get("include_data")
-        if include_data is None:
-            idq = request.query.get("include_data")
-            include_data = (idq.lower() == "true") if idq is not None else None
-        if include_data is None:
-            include_data = not targeting
+            targeting = _is_targeting_conv_or_org(filters)
+            include_data = payload.get("include_data")
+            if include_data is None:
+                idq = request.query.get("include_data")
+                include_data = (idq.lower() == "true") if idq is not None else None
+            if include_data is None:
+                include_data = not targeting
 
-        namespace = payload.get("namespace") or state.db.config.default_namespace
+            namespace = payload.get("namespace") or state.db.config.default_namespace
 
-        # intended-API knobs (API.md:30-44 — documented in the reference,
-        # implemented here): bm25_k1 / bm25_b / min_score_threshold /
-        # highlight_snippets
-        k1 = payload.get("bm25_k1")
-        b = payload.get("bm25_b")
-        min_score = payload.get("min_score_threshold")
-        want_highlights = bool(payload.get("highlight_snippets"))
+            # intended-API knobs (API.md:30-44 — documented in the reference,
+            # implemented here): bm25_k1 / bm25_b / min_score_threshold /
+            # highlight_snippets
+            k1 = payload.get("bm25_k1")
+            b = payload.get("bm25_b")
+            min_score = payload.get("min_score_threshold")
+            want_highlights = bool(payload.get("highlight_snippets"))
 
         try:
             if k1 is None and b is None and min_score is None:
@@ -370,24 +383,25 @@ async def query_json_post(request: web.Request) -> web.Response:
         except Exception as e:  # parse/engine errors -> 500 envelope
             return _json({"error": f"Search failed: {e}"}, status=_exc_status(e))
 
-        if want_highlights:
-            from fugu_tpu_torch import analysis
-            from fugu_tpu_torch.engine.highlight import highlight
+        with telemetry.span("front", "respond"):
+            if want_highlights:
+                from fugu_tpu_torch import analysis
+                from fugu_tpu_torch.engine.highlight import highlight
 
-            def add_snippets():  # CPU work off the event loop
-                terms = analysis.tokenize_terms(payload["query"])
-                for item in out["results"]:
-                    if "text" in item and item["text"]:
-                        item["snippet"] = highlight(item["text"], terms)
+                def add_snippets():  # CPU work off the event loop
+                    terms = analysis.tokenize_terms(payload["query"])
+                    for item in out["results"]:
+                        if "text" in item and item["text"]:
+                            item["snippet"] = highlight(item["text"], terms)
 
-            await state.run_sync(add_snippets)
-        out = _strip_text(out, include_text)
-        if developer_message:
-            out["developer_message"] = developer_message
-        out["includes_data_objects"] = include_data
-        out["targeting_conversations_or_organizations"] = targeting
-        out["total_hits"] = out["total"]  # API.md:108-115 naming alias
-        return _json_search(out)
+                await state.run_sync(add_snippets)
+            out = _strip_text(out, include_text)
+            if developer_message:
+                out["developer_message"] = developer_message
+            out["includes_data_objects"] = include_data
+            out["targeting_conversations_or_organizations"] = targeting
+            out["total_hits"] = out["total"]  # API.md:108-115 naming alias
+            return _json_search(out)
 
 
 def _is_targeting_conv_or_org(filters: List[str]) -> bool:
@@ -1041,6 +1055,7 @@ def create_app(db: DatasetManager) -> web.Application:
         client_max_size=256 * 1024 * 1024, middlewares=[_otel_middleware]
     )
     app["state"] = AppState(db)
+    telemetry.install_gc_hook()
     r = app.router
     r.add_get("/health", health)
     r.add_get("/hi", sayhi)

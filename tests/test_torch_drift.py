@@ -47,11 +47,9 @@ VERBATIM = [
     "query.py",
     "records.py",
     "server/__init__.py",
-    "server/metrics.py",
     "server/openapi.py",
     "storage/__init__.py",
     "storage/spill.py",
-    "telemetry.py",
     "version.py",
 ]
 
@@ -62,8 +60,33 @@ REWRITTEN = {
     # --shard-devices serves over the port's mesh on that device
     "cli.py": {"__doc__", "build_parser", "_run_cli_inner"},
     # the CUDA kernels are built and loaded before the socket is bound;
-    # the warm-up's comments speak of pack uploads, not of XLA compiles
-    "server/app.py": {"start_http_server"},
+    # the warm-up's comments speak of pack uploads, not of XLA compiles.
+    # The search handlers split their time into the front.parse and
+    # front.respond spans, a search's span names the engine batch that
+    # served it, and the app times the process's garbage collections
+    "server/app.py": {
+        "start_http_server", "query_text_get", "query_text_path",
+        "search_endpoint", "search_namespace_post", "query_json_post",
+        "_perform_search", "create_app",
+    },
+    # a span is also a measurement: its seconds in /metrics, a range on
+    # the profiler's timeline while one records; counters, the engine
+    # batch's number and the garbage collections' hook beside it.  The
+    # component helpers' spans, named from their input, stay out of
+    # /metrics
+    "telemetry.py": {
+        "__doc__", "import gc", "import itertools", "_open_span",
+        "_batches", "_gc_installed", "_gc_start", "_gc_ann", "request_span",
+        "_Span", "span", "annotate", "count", "next_batch",
+        "install_gc_hook", "_gc_callback", "_profiler", "_registry",
+        "_set_attributes", "server_span", "cli_span", "compactor_span",
+        "query_span",
+        # dropped: nothing calls db_span (no database span in the port)
+        "db_span",
+    },
+    # histograms take labels (the spans'), and the registry gives each
+    # sample's change between its last two renders
+    "server/metrics.py": {"import collections", "Metrics"},
     # the code is the reference's (SAME_CODE below); only the comments
     # that quoted the TPU host's timings are rewritten
     "server/batcher.py": {
@@ -78,7 +101,13 @@ REWRITTEN = {
     },
     # the indexes' device passed through (the manager hands the docs
     # index its mesh, as the reference's does)
-    "engine/dataset.py": {"Dataset.__init__"},
+    "engine/dataset.py": {
+        "Dataset.__init__",
+        # the engine's spans (the batch, its planning and its hit
+        # conversion), and each page names the batch that served it
+        "Dataset.search_many", "BatchPage",
+        "from fugu_tpu_torch import telemetry",
+    },
     # the mesh built on the manager's device (a card may hold several
     # shards; no single-device fallback) and handed to each namespace
     "engine/manager.py": {
