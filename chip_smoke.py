@@ -6,8 +6,8 @@ no CUDA device exists or the checkout is missing.  Phases:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the three CUDA kernels (``fugu_tpu_torch/csrc``, one ``nvcc``
-   each, all started together) and the native tokenizer from the
-   checkout's sources;
+   each, all started together) and the native segment build's library
+   from the checkout's sources;
 3. each kernel against its plain PyTorch version on the card, on a
    seeded 50k-doc segment with one doc that spans several stream
    chunks and one of 100 distinct terms: the block scorer (k = 16, 32,
@@ -2608,17 +2608,17 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # phase 2: build the kernels and the native tokenizer
+    # phase 2: build the kernels and the native segment build
     from fugu_tpu_torch import cuda_build, native
 
     t0 = time.perf_counter()
     cuda_build.load_all()  # raises if a build failed
     t_kernels = time.perf_counter() - t0
     if not native.available():
-        fail("native tokenizer did not build")
+        fail("the native segment build's library did not build")
     t_build = time.perf_counter() - t0
-    log(f"build {tag}: CUDA kernels {t_kernels:.1f} s, with native "
-        f"tokenizer {t_build:.1f} s")
+    log(f"build {tag}: CUDA kernels {t_kernels:.1f} s, with the native "
+        f"segment build {t_build:.1f} s")
     for name, text in cuda_build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:

@@ -78,7 +78,7 @@ class _FieldBuf:
     ``lens`` the per-value byte lengths; ``(docs, nvals)`` the sparse
     per-doc value counts.  int64 arrays so build() can wrap them with
     ``np.frombuffer`` zero-copy and hand pointers straight to the C ABI
-    (native.py ``add_docs_encoded``)."""
+    (native.py ``invert_docs``)."""
 
     __slots__ = ("data", "lens", "docs", "nvals")
 
@@ -87,6 +87,76 @@ class _FieldBuf:
         self.lens = array.array("q")
         self.docs = array.array("q")
         self.nvals = array.array("q")
+
+
+#: the least UTF-8 text, in bytes, that a doc range of the native build
+#: inverts on a thread of its own (see :func:`text_ranges`): ranges of
+#: a few MB still invert several times faster on 4-8 cores than whole
+#: (PERF.md), and a writer's flush of a few hundred records stays one
+#: range
+BUILD_RANGE_MIN_BYTES = 1 << 20
+
+
+@dataclasses.dataclass(frozen=True)
+class TextRange:
+    """Docs ``[doc0, doc1)`` of a field's :class:`_FieldBuf`: its entries
+    ``[entry0, entry1)``, values ``[value0, value1)`` and text bytes
+    ``[byte0, byte1)``."""
+
+    doc0: int
+    doc1: int
+    entry0: int
+    entry1: int
+    value0: int
+    value1: int
+    byte0: int
+    byte1: int
+
+
+def text_ranges(buf: _FieldBuf, n_docs: int, cores: int) -> List[TextRange]:
+    """Cut a field's docs ``[0, n_docs)`` into contiguous ranges of about
+    equal text: as many as ``cores``, but none under
+    :data:`BUILD_RANGE_MIN_BYTES` (so a writer's flush of a few thousand
+    records is one range), and no empty one."""
+    lens = np.frombuffer(buf.lens, dtype=np.int64)
+    docs = np.frombuffer(buf.docs, dtype=np.int64)
+    nvals = np.frombuffer(buf.nvals, dtype=np.int64)
+    byte_off = np.zeros(len(lens) + 1, dtype=np.int64)
+    np.cumsum(lens, out=byte_off[1:])
+    value_off = np.zeros(len(nvals) + 1, dtype=np.int64)
+    np.cumsum(nvals, out=value_off[1:])
+    total = int(byte_off[-1])
+    n = max(1, min(cores, total // BUILD_RANGE_MIN_BYTES, n_docs))
+    # a cut falls on the first doc whose text ends past its share
+    entry_end = byte_off[value_off[1:]]
+    cuts = np.searchsorted(entry_end, np.arange(1, n) * (total / n),
+                           side="right")
+    bounds = [0] + [int(docs[c]) if c < len(docs) else n_docs
+                    for c in cuts.tolist()] + [n_docs]
+    out = []
+    for d0, d1 in zip(bounds[:-1], bounds[1:]):
+        if d1 <= d0:
+            continue
+        e0, e1 = np.searchsorted(docs, [d0, d1]).tolist()
+        v0, v1 = int(value_off[e0]), int(value_off[e1])
+        out.append(TextRange(d0, d1, e0, e1, v0, v1, int(byte_off[v0]),
+                             int(byte_off[v1])))
+    return out
+
+
+def invert_range(buf: _FieldBuf, rng: TextRange):
+    """One doc range of a field inverted (``native.invert_docs``), docs
+    numbered from the range's first; the text is read in place."""
+    from fugu_tpu_torch.native import invert_docs
+
+    return invert_docs(
+        memoryview(buf.data)[rng.byte0 : rng.byte1],
+        np.frombuffer(buf.lens, dtype=np.int64)[rng.value0 : rng.value1],
+        np.frombuffer(buf.docs, dtype=np.int64)[rng.entry0 : rng.entry1]
+        - rng.doc0,
+        np.frombuffer(buf.nvals, dtype=np.int64)[rng.entry0 : rng.entry1],
+        rng.doc1 - rng.doc0,
+    )
 
 
 class SegmentBuilder:
@@ -190,10 +260,10 @@ class SegmentBuilder:
         self, doc: int, text_fields: Dict[str, Sequence[str]]
     ) -> None:
         # values are encoded + buffered here (sparsely: absent fields
-        # cost nothing); the C++ accumulator ingests the whole buffer in
-        # one FFI call at build() (fugu_builder_add_docs) — per-doc
-        # ctypes crossings measured ~40us each, and per-value flush-time
-        # encode/join was the next cost after batching removed those
+        # cost nothing); build() inverts the buffer in one FFI call a doc
+        # range (native.invert_docs) — per-doc ctypes crossings measured
+        # ~40us each, and per-value flush-time encode/join was the next
+        # cost after batching removed those
         nb = self._native_buf
         approx = 16
         for field, values in text_fields.items():
@@ -204,7 +274,9 @@ class SegmentBuilder:
             for v in values:
                 if type(v) is not str:
                     v = str(v)
-                # errors="replace" matches NativeFieldAccumulator.add_doc
+                # errors="replace" as native.tokenize encodes: a lone
+                # surrogate becomes "?", a token boundary, as in the
+                # Python tokenizer
                 b = v.encode("utf-8", "replace")
                 buf.data += b
                 buf.lens.append(len(b))
@@ -245,7 +317,21 @@ class SegmentBuilder:
                 self.approx_bytes += 16 + len(term) + 4 * len(poss)
 
     def _build_native(self) -> "Segment":
-        """Assemble the segment from the C++ accumulators' flat arrays."""
+        """Assemble the segment from the native inversion's flat arrays.
+
+        Each text field is inverted in contiguous doc ranges
+        (:func:`text_ranges`, :func:`invert_range`) on as many threads as
+        the process may use cores (ctypes releases the GIL for each
+        range's call); ``native.merge_ranges`` then merges each field's
+        ranges into what one inversion of every doc gives."""
+        import gc
+        import os
+        import time
+        from concurrent.futures import ThreadPoolExecutor
+
+        from fugu_tpu_torch import telemetry
+        from fugu_tpu_torch.native import merge_ranges
+
         terms: Dict[str, Dict[str, TermInfo]] = {}
         fieldnorm_ids: Dict[str, np.ndarray] = {}
         total_tokens: Dict[str, int] = {}
@@ -258,39 +344,62 @@ class SegmentBuilder:
         offset = 0
         max_posting = 1
 
-        from fugu_tpu_torch.native import NativeFieldAccumulator
-
-        for field in sorted(self._native_buf.keys()):
-            buf = self._native_buf[field]
-            acc = NativeFieldAccumulator()
-            acc.add_docs_encoded(
-                buf.data,
-                np.frombuffer(buf.lens, dtype=np.int64),
-                np.frombuffer(buf.docs, dtype=np.int64),
-                np.frombuffer(buf.nvals, dtype=np.int64),
-                self._doc_count,
-            )
-            (tlist, dfs, docs, tfs, poffs, pdata, tok_counts) = acc.finish()
-            norms = np.zeros(self._doc_count, dtype=np.int64)
-            norms[: len(tok_counts)] = tok_counts
-            fids = fieldnorms_to_ids(norms)
-            fieldnorm_ids[field] = fids
-            total_tokens[field] = int(norms.sum())
-            field_entry_base[field] = offset
-            tmap: Dict[str, TermInfo] = {}
-            pos = 0
-            for term, df in zip(tlist, dfs):
-                tmap[term] = TermInfo(start=offset + pos, doc_freq=int(df))
-                pos += int(df)
-                if int(df) > max_posting:
-                    max_posting = int(df)
-            terms[field] = tmap
-            packs_doc.append(docs)
-            packs_tf.append(tfs)
-            packs_fid.append(fids[docs].astype(np.int32))
-            pos_data[field] = pdata
-            pos_offsets[field] = poffs
-            offset += len(docs)
+        fields = sorted(self._native_buf.keys())
+        cores = len(os.sched_getaffinity(0))
+        with telemetry.span("index", "build", observe=False,
+                            docs=self._doc_count):
+            t0 = time.perf_counter()
+            tasks = [
+                (field, rng)
+                for field in fields
+                for rng in text_ranges(self._native_buf[field],
+                                       self._doc_count, cores)
+            ]
+            parts: Dict[str, list] = {field: [] for field in fields}
+            if tasks:
+                with ThreadPoolExecutor(min(cores, len(tasks))) as pool:
+                    done = pool.map(
+                        lambda t: invert_range(self._native_buf[t[0]], t[1]),
+                        tasks)
+                    for (field, rng), part in zip(tasks, done):
+                        parts[field].append((rng, part))
+            t1 = time.perf_counter()
+            for field in fields:
+                ranges = parts.pop(field)
+                (tlist, dfs, docs, tfs, poffs, pdata, tok_counts) = (
+                    merge_ranges([p for _r, p in ranges],
+                                 [r.doc0 for r, _p in ranges]))
+                del ranges
+                norms = np.zeros(self._doc_count, dtype=np.int64)
+                norms[: len(tok_counts)] = tok_counts
+                fids = fieldnorms_to_ids(norms)
+                fieldnorm_ids[field] = fids
+                total_tokens[field] = int(norms.sum())
+                field_entry_base[field] = offset
+                starts = offset + np.cumsum(dfs, dtype=np.int64) - dfs
+                # the collector's passes over the heap that these millions
+                # of new objects grow took ~40% of the map's time at 1M
+                # docs (1.9M terms: 4.2-5.0 s, 2.4-3.0 s paused)
+                collect = gc.isenabled()
+                gc.disable()
+                try:
+                    terms[field] = dict(zip(
+                        tlist, map(TermInfo, starts.tolist(), dfs.tolist())))
+                finally:
+                    if collect:
+                        gc.enable()
+                if len(dfs):
+                    max_posting = max(max_posting, int(dfs.max()))
+                packs_doc.append(docs)
+                packs_tf.append(tfs)
+                packs_fid.append(fids[docs].astype(np.int32))
+                pos_data[field] = pdata
+                pos_offsets[field] = poffs
+                offset += len(docs)
+            telemetry.annotate(
+                tokens=sum(total_tokens.values()), ranges=len(tasks),
+                invert_s=round(t1 - t0, 6),
+                merge_s=round(time.perf_counter() - t1, 6))
 
         ftmap: Dict[str, TermInfo] = {}
         for path in sorted(self._facet_postings.keys()):

@@ -1,12 +1,16 @@
-"""ctypes binding for the native (C++) analyzer/postings builder.
+"""ctypes bindings for the native (C++) segment build.
 
-Loads ``fugu_tpu_torch/_build/libfugu_native.so``, built from
-``native/fugu_native.cc`` by ``python -m fugu_tpu_torch.native --build``
-or at first use.  Falls back cleanly when the
-library is missing — every caller must treat ``load()`` returning None
-as "use the Python path".  Parity with fugu_tpu_torch.analysis is enforced by
-tests/test_native.py; the Unicode tables are generated from the running
-CPython so the two cannot drift.
+``csrc/segment_build.cc`` carries the reference's analyzer
+(``native/fugu_native.cc``, unchanged) and inverts one doc range of a
+field (:func:`invert_docs`); ``index/segment.py`` inverts a field's
+ranges on the process's cores and merges them in the same library
+(:func:`merge_ranges`).  The library is built with g++ into
+``fugu_tpu_torch/_build/`` by ``python -m fugu_tpu_torch.native --build``
+or at first use (:func:`segment_library`).  :func:`available` says
+whether it builds and loads; every caller treats False as "use the
+Python path", as does ``FUGU_NO_NATIVE`` set in the environment.  The
+Unicode tables are generated from the running CPython, so the analyzer
+cannot drift from ``fugu_tpu_torch.analysis``.
 """
 
 from __future__ import annotations
@@ -15,337 +19,181 @@ import ctypes
 import os
 import subprocess
 import sys
+import threading
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Optional
 
 import numpy as np
 
-_LIB: Optional[ctypes.CDLL] = None
-_TRIED = False
-
 NATIVE_DIR = Path(__file__).parent.parent / "native"
 BUILD_DIR = Path(__file__).parent / "_build"
-LIB_PATH = BUILD_DIR / "libfugu_native.so"
 
 
-def build_library() -> bool:
-    """Compile native/fugu_native.cc into the port's build directory.
-
-    The source and its table generator are copied into a private
-    scratch directory, so the generated ``unicode_tables.h`` comes from
-    the running CPython and nothing under ``native/`` is written.  The
-    library is renamed into place, so concurrent builders never load a
-    half-written file."""
-    import shutil
-    import tempfile
-
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        work = Path(tmp)
-        for src in ("fugu_native.cc", "gen_unicode_tables.py"):
-            shutil.copy2(NATIVE_DIR / src, work / src)
-        out = work / LIB_PATH.name
-        try:
-            subprocess.run(
-                [sys.executable, str(work / "gen_unicode_tables.py")],
-                check=True,
-                capture_output=True,
-            )
-            subprocess.run(
-                [
-                    "g++",
-                    "-O3",
-                    "-std=c++17",
-                    "-shared",
-                    "-fPIC",
-                    str(work / "fugu_native.cc"),
-                    "-o",
-                    str(out),
-                ],
-                check=True,
-                capture_output=True,
-            )
-        except FileNotFoundError:
-            return False
-        except subprocess.CalledProcessError as e:
-            import logging
-
-            # surface the compiler/generator output — a silent False here
-            # degrades ingest ~2x with no diagnostic
-            logging.getLogger("fugu_tpu_torch").warning(
-                "native build failed (%s): %s",
-                e.cmd[0] if e.cmd else "?",
-                (e.stderr or b"").decode(errors="replace")[-2000:],
-            )
-            return False
-        os.replace(out, LIB_PATH)
-    return True
-
-
-def _stale() -> bool:
-    """True when any native source is newer than the built library —
-    a stale .so would silently serve outdated tokenization."""
-    try:
-        lib_mtime = LIB_PATH.stat().st_mtime
-    except OSError:
-        return True
-    for src in ("fugu_native.cc", "unicode_tables.h", "gen_unicode_tables.py"):
-        p = NATIVE_DIR / src
-        if p.exists() and p.stat().st_mtime > lib_mtime:
-            return True
-    return False
-
-
-def load() -> Optional[ctypes.CDLL]:
-    global _LIB, _TRIED
-    if _LIB is not None or _TRIED:
-        return _LIB
-    _TRIED = True
-    if os.environ.get("FUGU_NO_NATIVE"):
-        return None
-    if not LIB_PATH.exists() or _stale():
-        if not build_library():
-            # NEVER fall back to a stale .so: if sources changed and the
-            # rebuild failed, serving the old binary would silently
-            # diverge native and Python tokenization (index/query term
-            # mismatches) — degrade to the Python path loudly instead
-            import logging
-
-            logging.getLogger("fugu_tpu_torch").warning(
-                "native module build failed; using the (slower) Python "
-                "tokenizer/builder path"
-            )
-            return None
-    try:
-        lib = ctypes.CDLL(str(LIB_PATH))
-    except OSError:
-        return None
-    lib.fugu_builder_new.restype = ctypes.c_void_p
-    lib.fugu_builder_add_doc.argtypes = [
-        ctypes.c_void_p,
-        ctypes.c_char_p,
-        ctypes.POINTER(ctypes.c_int64),
-        ctypes.c_int64,
-    ]
-    lib.fugu_builder_add_docs.argtypes = [
-        ctypes.c_void_p,
-        ctypes.c_char_p,
-        ctypes.POINTER(ctypes.c_int64),
-        ctypes.POINTER(ctypes.c_int64),
-        ctypes.c_int64,
-    ]
-    lib.fugu_builder_finish.restype = ctypes.c_void_p
-    lib.fugu_builder_finish.argtypes = [ctypes.c_void_p]
-    lib.fugu_builder_free.argtypes = [ctypes.c_void_p]
-    for name in (
-        "fugu_result_n_terms",
-        "fugu_result_n_postings",
-        "fugu_result_n_positions",
-        "fugu_result_term_blob_size",
-        "fugu_result_n_docs",
-        "fugu_tokens_count",
-        "fugu_tokens_blob_size",
-    ):
-        getattr(lib, name).restype = ctypes.c_int64
-        getattr(lib, name).argtypes = [ctypes.c_void_p]
-    lib.fugu_result_copy.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 8
-    lib.fugu_result_free.argtypes = [ctypes.c_void_p]
-    lib.fugu_tokenize.restype = ctypes.c_void_p
-    lib.fugu_tokenize.argtypes = [ctypes.c_char_p, ctypes.c_int64]
-    lib.fugu_tokens_copy.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 3
-    lib.fugu_tokens_free.argtypes = [ctypes.c_void_p]
-    _LIB = lib
-    return lib
+_built: Optional[bool] = None
 
 
 def available() -> bool:
-    return load() is not None
+    """Whether the segment build's library builds and loads (False under
+    ``FUGU_NO_NATIVE``).  A failed build is logged with the compiler's
+    output once a process, and the caller takes the Python path."""
+    global _built
+    if os.environ.get("FUGU_NO_NATIVE"):
+        return False
+    if _built is None:
+        try:
+            segment_library()
+            _built = True
+        except (OSError, RuntimeError) as e:
+            import logging
+
+            logging.getLogger("fugu_tpu_torch").warning(
+                "native segment build unavailable; using the (slower) "
+                "Python builder path: %s", e)
+            _built = False
+    return _built
 
 
-def tokenize(text: str) -> List[Tuple[str, int]]:
-    """(token, position) pairs via the native tokenizer."""
-    lib = load()
-    assert lib is not None
-    data = text.encode("utf-8", "replace")  # match add_doc{,s}
-    h = lib.fugu_tokenize(data, len(data))
+SEGMENT_SRC = Path(__file__).parent / "csrc" / "segment_build.cc"
+SEGMENT_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+_segment_lib: Optional[ctypes.CDLL] = None
+_segment_lock = threading.Lock()
+
+
+def segment_library() -> ctypes.CDLL:
+    """``csrc/segment_build.cc`` built with g++ into the build directory
+    on first use, with the Unicode tables that
+    ``native/gen_unicode_tables.py`` generates from the running CPython,
+    and loaded.  The library's file name carries a hash of the source,
+    the generator, the Unicode version and the flags, so a change to any
+    is rebuilt and a stale library never loaded; the build writes a
+    private file and renames it into place, so concurrent processes
+    never load a half-written one.  Raises if it does not build."""
+    global _segment_lib
+    with _segment_lock:
+        if _segment_lib is not None:
+            return _segment_lib
+        import hashlib
+        import shutil
+        import tempfile
+        import unicodedata
+
+        gen = NATIVE_DIR / "gen_unicode_tables.py"
+        digest = hashlib.sha1(
+            SEGMENT_SRC.read_bytes() + gen.read_bytes()
+            + unicodedata.unidata_version.encode()
+            + " ".join(SEGMENT_FLAGS).encode()
+        ).hexdigest()[:16]
+        path = BUILD_DIR / f"libsegment_build-{digest}.so"
+        if not path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+                work = Path(tmp)
+                shutil.copy2(gen, work / gen.name)
+                out = work / path.name
+                for cmd in (
+                    [sys.executable, str(work / gen.name)],
+                    ["g++", *SEGMENT_FLAGS, "-I", str(work), str(SEGMENT_SRC),
+                     "-o", str(out)],
+                ):
+                    proc = subprocess.run(cmd, capture_output=True, text=True)
+                    if proc.returncode != 0:
+                        raise RuntimeError(
+                            f"building {SEGMENT_SRC.name} failed:\n"
+                            f"{(proc.stdout + proc.stderr)[-4000:]}"
+                        )
+                os.replace(out, path)
+        lib = ctypes.CDLL(str(path))
+        lib.fugu_range_invert.restype = ctypes.c_void_p
+        lib.fugu_range_invert.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64]
+        lib.fugu_range_sizes.argtypes = [ctypes.c_void_p] * 2
+        lib.fugu_range_copy.argtypes = [ctypes.c_void_p] * 9
+        lib.fugu_range_free.argtypes = [ctypes.c_void_p]
+        lib.fugu_merge_ranges.restype = ctypes.c_int64
+        lib.fugu_merge_ranges.argtypes = [ctypes.c_int64] + [ctypes.c_void_p] * 16
+        _segment_lib = lib
+        return lib
+
+
+def invert_docs(data, value_lens, doc_ids, doc_nvals, n_docs: int):
+    """One doc range of a field inverted by ``csrc/segment_build.cc``
+    (the reference's analyzer; ctypes releases the GIL for the whole
+    call).  ``data`` is the UTF-8 concatenation of every value in order
+    (any buffer: a memoryview of a slice is read in place),
+    ``value_lens`` the per-value byte lengths, and ``(doc_ids,
+    doc_nvals)`` the sparse per-doc value counts of docs
+    ``[0, n_docs)``.
+    -> (term_blob, term_lens, dfs, docs, tfs, pos_offsets, pos_data,
+    token_counts), flat: the terms in byte order joined in ``term_blob``
+    (uint8), ``term_lens`` their byte lengths; per term its postings in
+    doc order; ``pos_offsets`` (one more than the postings, from 0)
+    delimits each posting's positions."""
+    lib = segment_library()
+    offs = np.zeros(len(value_lens) + 1, dtype=np.int64)
+    np.cumsum(value_lens, dtype=np.int64, out=offs[1:])
+    counts = np.zeros(max(n_docs, 1), dtype=np.int64)
+    counts[doc_ids] = doc_nvals
+    text = np.frombuffer(data, dtype=np.uint8)
+    if counts.sum() != len(value_lens) or len(text) < offs[-1]:
+        raise ValueError("value counts or lengths do not fit the text")
+    r = lib.fugu_range_invert(text.ctypes.data, offs.ctypes.data,
+                              counts.ctypes.data, n_docs)
     try:
-        n = lib.fugu_tokens_count(h)
-        blob_n = lib.fugu_tokens_blob_size(h)
-        blob = ctypes.create_string_buffer(max(blob_n, 1))
-        lens = np.zeros(max(n, 1), dtype=np.int32)
-        poss = np.zeros(max(n, 1), dtype=np.int32)
-        lib.fugu_tokens_copy(
-            h,
-            blob,
-            lens.ctypes.data_as(ctypes.c_void_p),
-            poss.ctypes.data_as(ctypes.c_void_p),
+        sizes = np.zeros(5, dtype=np.int64)
+        lib.fugu_range_sizes(r, sizes.ctypes.data)
+        n_terms, n_post, n_pos, blob_n, n_out = sizes.tolist()
+        out = (
+            np.zeros(blob_n, dtype=np.uint8),
+            np.zeros(n_terms, dtype=np.int32),
+            np.zeros(n_terms, dtype=np.int32),
+            np.zeros(n_post, dtype=np.int32),
+            np.zeros(n_post, dtype=np.int32),
+            np.zeros(n_post + 1, dtype=np.int64),
+            np.zeros(n_pos, dtype=np.int32),
+            np.zeros(n_out, dtype=np.int64),
         )
-        out = []
-        off = 0
-        raw = blob.raw[:blob_n]
-        for i in range(n):
-            ln = int(lens[i])
-            out.append((raw[off : off + ln].decode("utf-8"), int(poss[i])))
-            off += ln
+        lib.fugu_range_copy(r, *(a.ctypes.data for a in out))
         return out
     finally:
-        lib.fugu_tokens_free(h)
+        lib.fugu_range_free(r)
 
 
-class NativeFieldAccumulator:
-    """Per-field postings accumulation in C++."""
+def merge_ranges(parts, doc_bases):
+    """One field's postings from its doc ranges' :func:`invert_docs`
+    outputs (``parts``, in doc order; range ``i``'s docs start at field
+    doc ``doc_bases[i]``), merged by ``csrc/segment_build.cc`` into what
+    one inversion of every doc gives: -> (terms, dfs, docs, tfs,
+    pos_offsets, pos_data, token_counts), ``terms`` a list of str in
+    byte order."""
+    lib = segment_library()
+    n_terms = sum(len(p[1]) for p in parts)
+    n_post = sum(len(p[3]) for p in parts)
+    blob = np.zeros(sum(len(p[0]) for p in parts) + n_terms, dtype=np.uint8)
+    dfs = np.zeros(n_terms, dtype=np.int32)
+    docs = np.zeros(n_post, dtype=np.int32)
+    tfs = np.zeros(n_post, dtype=np.int32)
+    pos_offsets = np.zeros(n_post + 1, dtype=np.int64)
+    pos_data = np.zeros(sum(len(p[6]) for p in parts), dtype=np.int32)
+    blob_n = np.zeros(1, dtype=np.int64)
 
-    def __init__(self):
-        self._lib = load()
-        assert self._lib is not None
-        self._h = self._lib.fugu_builder_new()
-        self.n_docs = 0
+    def each(i):
+        return (ctypes.c_void_p * len(parts))(*(p[i].ctypes.data for p in parts))
 
-    def __del__(self):
-        # a caller abandoning the accumulator before finish() (e.g. an
-        # exception mid-flush) must not leak the C++ Builder and its
-        # posting vectors for the life of the process
-        h, self._h = getattr(self, "_h", None), None
-        if h is not None and self._lib is not None:
-            self._lib.fugu_builder_free(h)
-
-    def add_doc(self, values: List[str]) -> None:
-        # errors="replace": a lone surrogate (rejected by validate() at
-        # the API boundary but expressible via direct builder use)
-        # becomes '?', a token boundary — exactly what the Python
-        # tokenizer does with the unencodable char, so the two paths
-        # still tokenize identically instead of wedging the flush with
-        # UnicodeEncodeError
-        parts = [v.encode("utf-8", "replace") for v in values]  # encode ONCE
-        data = b"".join(parts)
-        offsets = np.zeros(len(values) + 1, dtype=np.int64)
-        acc = 0
-        for i, part in enumerate(parts):
-            acc += len(part)
-            offsets[i + 1] = acc
-        self._lib.fugu_builder_add_doc(
-            self._h,
-            data,
-            offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            len(values),
-        )
-        self.n_docs += 1
-
-    def add_docs_encoded(
-        self,
-        data,
-        value_lens: np.ndarray,
-        doc_ids: np.ndarray,
-        doc_nvals: np.ndarray,
-        n_docs: int,
-    ) -> None:
-        """Batched ingestion from PRE-ENCODED buffers: ``data`` is the
-        UTF-8 concatenation of every value in order, ``value_lens`` the
-        per-value byte lengths, and ``(doc_ids, doc_nvals)`` the sparse
-        per-doc value counts (docs absent from ``doc_ids`` contribute 0
-        values).  The ingest hot path accumulates these incrementally
-        (index/segment.py ``_FieldBuf``) so flush-time marshalling is
-        pure numpy — no per-value Python work, no giant ``b"".join``."""
-        offs = np.zeros(len(value_lens) + 1, dtype=np.int64)
-        if len(value_lens):
-            np.cumsum(value_lens, dtype=np.int64, out=offs[1:])
-        counts = np.zeros(max(n_docs, 1), dtype=np.int64)
-        if len(doc_ids):
-            counts[doc_ids] = doc_nvals
-        self._lib.fugu_builder_add_docs(
-            self._h,
-            bytes(data),
-            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            n_docs,
-        )
-        self.n_docs += n_docs
-
-    def add_docs(self, docs_values: List[List[str]]) -> None:
-        """Batched ingestion: ONE FFI call for many documents (the
-        per-call ctypes overhead dominates the per-doc path)."""
-        if not docs_values:
-            return
-        counts = np.fromiter(
-            (len(values) for values in docs_values),
-            dtype=np.int64,
-            count=len(docs_values),
-        )
-        parts = [
-            v.encode("utf-8", "replace")
-            for values in docs_values
-            for v in values
-        ]
-        offs = np.zeros(len(parts) + 1, dtype=np.int64)
-        if parts:
-            np.cumsum(
-                np.fromiter(map(len, parts), dtype=np.int64, count=len(parts)),
-                out=offs[1:],
-            )
-        data = b"".join(parts)
-        self._lib.fugu_builder_add_docs(
-            self._h,
-            data,
-            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            len(docs_values),
-        )
-        self.n_docs += len(docs_values)
-
-    def finish(self):
-        """-> (terms, dfs, docs, tfs, pos_offsets, pos_data, token_counts)."""
-        lib = self._lib
-        r = lib.fugu_builder_finish(self._h)
-        lib.fugu_builder_free(self._h)
-        self._h = None
-        try:
-            n_terms = lib.fugu_result_n_terms(r)
-            n_post = lib.fugu_result_n_postings(r)
-            n_pos = lib.fugu_result_n_positions(r)
-            blob_n = lib.fugu_result_term_blob_size(r)
-            n_docs = lib.fugu_result_n_docs(r)
-            blob = ctypes.create_string_buffer(max(blob_n, 1))
-            term_lens = np.zeros(max(n_terms, 1), dtype=np.int32)
-            term_dfs = np.zeros(max(n_terms, 1), dtype=np.int32)
-            post_docs = np.zeros(max(n_post, 1), dtype=np.int32)
-            post_tfs = np.zeros(max(n_post, 1), dtype=np.int32)
-            pos_offsets = np.zeros(n_post + 1, dtype=np.int64)
-            pos_data = np.zeros(max(n_pos, 1), dtype=np.int32)
-            token_counts = np.zeros(max(n_docs, 1), dtype=np.int64)
-            lib.fugu_result_copy(
-                r,
-                blob,
-                term_lens.ctypes.data_as(ctypes.c_void_p),
-                term_dfs.ctypes.data_as(ctypes.c_void_p),
-                post_docs.ctypes.data_as(ctypes.c_void_p),
-                post_tfs.ctypes.data_as(ctypes.c_void_p),
-                pos_offsets.ctypes.data_as(ctypes.c_void_p),
-                pos_data.ctypes.data_as(ctypes.c_void_p),
-                token_counts.ctypes.data_as(ctypes.c_void_p),
-            )
-            terms = []
-            off = 0
-            raw = blob.raw[:blob_n]
-            for i in range(n_terms):
-                ln = int(term_lens[i])
-                terms.append(raw[off : off + ln].decode("utf-8"))
-                off += ln
-            return (
-                terms,
-                term_dfs[:n_terms],
-                post_docs[:n_post],
-                post_tfs[:n_post],
-                pos_offsets,
-                pos_data[:n_pos],
-                token_counts[:n_docs],
-            )
-        finally:
-            lib.fugu_result_free(r)
+    counts = np.array([len(p[1]) for p in parts], dtype=np.int64)
+    bases = np.asarray(doc_bases, dtype=np.int64)
+    n = lib.fugu_merge_ranges(
+        len(parts), *(each(i) for i in range(7)), counts.ctypes.data,
+        bases.ctypes.data, blob.ctypes.data, dfs.ctypes.data,
+        docs.ctypes.data, tfs.ctypes.data, pos_offsets.ctypes.data,
+        pos_data.ctypes.data, blob_n.ctypes.data,
+    )
+    # each term ends in "\n"
+    text = blob[: max(int(blob_n[0]) - 1, 0)].tobytes().decode("utf-8")
+    terms = text.split("\n") if n else []
+    token_counts = np.concatenate([p[7] for p in parts])
+    return terms, dfs[:n], docs, tfs, pos_offsets, pos_data, token_counts
 
 
 if __name__ == "__main__":
-    if "--build" in sys.argv:
-        ok = build_library()
-        print("built" if ok else "build failed")
-        sys.exit(0 if ok else 1)
-    print("native available:", available())
+    ok = available()
+    print("native available:", ok)
+    sys.exit(0 if ok or "--build" not in sys.argv else 1)

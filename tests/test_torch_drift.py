@@ -12,9 +12,11 @@ comparison on both sides, and the rest must be equal line for line.
 Where a module's list holds ``"import"``, its top-level imports are left
 out too (the reference's import JAX and modules the port does not
 carry); a list may instead name one import statement (``"import
-yaml"``).  A module in ``SAME_CODE`` has only comments rewritten: its
-syntax tree must equal the reference's.  ``engine/named_index.py`` is rewritten as a whole, and the
-methods it carries are compared one by one.
+yaml"``), and ``"__main__"`` names the command-line block.  A module
+in ``SAME_CODE`` has only comments rewritten: its syntax tree must
+equal the reference's; a definition in ``SAME_CODE_DEFINITIONS`` too,
+its docstring left out.  ``engine/named_index.py`` is rewritten as a
+whole, and the methods it carries are compared one by one.
 """
 
 import ast
@@ -129,6 +131,14 @@ REWRITTEN = {
         "BM_BLOCK_DOCS", "BUILD_RANGE_DOCS", "BUILD_RANGE_ENTRIES",
         "build_ranges", "doc_range_keys", "span_values", "_TermTable",
         "_i32",
+        # each text field inverted in doc ranges on the process's cores
+        # and the ranges merged in compiled code (native.merge_ranges);
+        # the segment is the reference's (tests/test_torch_segment_ranges)
+        "SegmentBuilder._build_native", "BUILD_RANGE_MIN_BYTES", "TextRange",
+        "text_ranges", "invert_range",
+        # comments and docstrings that cited the reference's accumulator;
+        # their code is the reference's (SAME_CODE_DEFINITIONS below)
+        "_FieldBuf", "SegmentBuilder._add_document_native",
     },
     # the code is the reference's (SAME_CODE below); the docstrings that
     # quoted the TPU's division and compile times say what holds on the
@@ -136,7 +146,21 @@ REWRITTEN = {
     "ops/buckets.py": {"__doc__"},
     "ops/rescore.py": {"__doc__"},
     "native.py": {
-        "__doc__", "NATIVE_DIR", "BUILD_DIR", "LIB_PATH", "build_library",
+        "__doc__", "NATIVE_DIR", "BUILD_DIR",
+        # the segment build inverts doc ranges on threads and merges them
+        # in the port's own csrc/segment_build.cc (the analyzer in it is
+        # the reference's: test_port_cpp_tokenizer_matches_reference);
+        # available() and the command line say whether that library
+        # builds and loads
+        "import threading", "SEGMENT_SRC", "SEGMENT_FLAGS", "_segment_lib",
+        "_segment_lock", "segment_library", "invert_docs", "merge_ranges",
+        "_built", "available", "__main__",
+        "from typing import Optional", "from typing import List, Optional, Tuple",
+        # dropped: the reference's library (native/fugu_native.cc built
+        # whole), its loader and accumulator and its tokenizer binding,
+        # which the port no longer calls
+        "LIB_PATH", "build_library", "_stale", "load", "_LIB", "_TRIED",
+        "NativeFieldAccumulator", "tokenize",
     },
     "ops/residency.py": {"__doc__", "_auto_budget", "_HBM_BY_KIND"},
     "ops/phrase_stream.py": {
@@ -187,8 +211,9 @@ FUNCS = (ast.FunctionDef, ast.AsyncFunctionDef)
 def _strip(source: str, names) -> list:
     """Source lines without the named top-level definitions, methods
     (``Class.method``), assignments, calls (by the called name) and
-    module docstring, and without the top-level imports when ``names``
-    holds ``"import"``; blank lines dropped."""
+    module docstring, without the top-level imports when ``names``
+    holds ``"import"`` and without the ``if __name__ == "__main__":``
+    block when it holds ``"__main__"``; blank lines dropped."""
     tree = ast.parse(source)
     lines = source.splitlines()
     drop = set()
@@ -225,6 +250,9 @@ def _strip(source: str, names) -> list:
                 span(node)
         elif (isinstance(node, ast.Expr) and isinstance(node.value, ast.Call)
               and ast.unparse(node.value.func) in names):
+            span(node)
+        elif (isinstance(node, ast.If) and "__main__" in names
+              and ast.unparse(node.test) == "__name__ == '__main__'"):
             span(node)
     return [
         line for n, line in enumerate(lines, 1)
@@ -263,6 +291,42 @@ def _code(source: str) -> str:
 def test_carried_module_has_the_reference_code(module):
     port = (REPO / "fugu_tpu_torch" / module).read_text()
     assert _code(port) == _code(_renamed(module))
+
+
+#: module -> rewritten definitions whose comments and docstrings alone
+#: differ from the reference's: each syntax tree, docstrings left out,
+#: must equal the reference's
+SAME_CODE_DEFINITIONS = {
+    "index/segment.py": ["_FieldBuf", "SegmentBuilder._add_document_native"],
+}
+
+
+def _code_of(source: str, name: str) -> str:
+    """ast.dump of the top-level definition or method (``Class.method``)
+    ``name``, without the docstrings in it."""
+    node = ast.parse(source)
+    for part in name.split("."):
+        node = next(n for n in node.body
+                    if isinstance(n, FUNCS + (ast.ClassDef,))
+                    and n.name == part)
+    for sub in ast.walk(node):
+        body = getattr(sub, "body", None)
+        if (isinstance(sub, FUNCS + (ast.ClassDef,)) and body
+                and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            sub.body = body[1:]
+    return ast.dump(node)
+
+
+@pytest.mark.parametrize(
+    "module,name",
+    [(m, n) for m, names in sorted(SAME_CODE_DEFINITIONS.items())
+     for n in names])
+def test_rewritten_definition_has_the_reference_code(module, name):
+    assert name in REWRITTEN[module]
+    port = (REPO / "fugu_tpu_torch" / module).read_text()
+    assert _code_of(port, name) == _code_of(_renamed(module), name)
 
 
 #: NamedIndex methods the port carries from the reference: the writer
@@ -340,3 +404,56 @@ def test_carried_definition_matches_reference(module, name):
     ref = re.sub(r"\bfugu_tpu\b", "fugu_tpu_torch", ref)
     port = _definitions((REPO / module).read_text())
     assert port[name] == _definitions(ref)[name]
+
+
+#: the analyzer's definitions in native/fugu_native.cc (the Builder's
+#: add_doc is its tokenizing loop): a C++ source of the port that
+#: carries any of them must carry it unchanged
+TOKENIZER = ["kLongTokenByteLimit", "kPositionGap", "is_alnum",
+             "append_lower_utf8", "append_utf8", "decode_utf8", "add_doc",
+             "fugu_tokenize"]
+
+
+def _cc_definition(source: str, name: str):
+    """The text of the C++ definition of ``name`` (from its line to the
+    end of its braces or its ';'), or None."""
+    lines = source.splitlines()
+    pat = re.compile(rf"^\s*[\w:<>*&\s]*\b{name}\b\s*(\(|=)")
+    for i, line in enumerate(lines):
+        if not pat.match(line) or line.rstrip().endswith(";") and "=" not in line:
+            continue
+        depth, out = 0, []
+        for text in lines[i:]:
+            out.append(text)
+            depth += text.count("{") - text.count("}")
+            if depth == 0 and (text.rstrip().endswith("}")
+                               or text.rstrip().endswith(";")):
+                return "\n".join(out)
+    return None
+
+
+def test_port_builds_the_reference_tokenizer():
+    """native.py generates the analyzer's tables with native/'s
+    generator, and the segment build's source carries the whole
+    analyzer."""
+    from fugu_tpu_torch import native
+
+    assert native.NATIVE_DIR.resolve() == (REPO / "native").resolve()
+    ref = (REPO / "native" / "fugu_native.cc").read_text()
+    port = native.SEGMENT_SRC.read_text()
+    for name in TOKENIZER:
+        assert _cc_definition(ref, name) is not None, name
+        if name != "fugu_tokenize":
+            assert _cc_definition(port, name) is not None, name
+
+
+@pytest.mark.parametrize(
+    "source", sorted(p.name for p in (REPO / "fugu_tpu_torch" / "csrc").iterdir()
+                     if p.suffix in (".cc", ".cu", ".h")))
+def test_port_cpp_tokenizer_matches_reference(source):
+    ref = (REPO / "native" / "fugu_native.cc").read_text()
+    port = (REPO / "fugu_tpu_torch" / "csrc" / source).read_text()
+    for name in TOKENIZER:
+        copy = _cc_definition(port, name)
+        if copy is not None:
+            assert copy == _cc_definition(ref, name), name

@@ -210,8 +210,9 @@ def test_stored_docs_and_tombstones_carry_over(namespace):
 
 
 def test_segment_builder_matches_reference():
-    """The port's SegmentBuilder (native tokenizer built into the port's
-    own build directory) freezes the same segment as the reference's."""
+    """The port's SegmentBuilder (native segment build, compiled into the
+    port's own build directory) freezes the same segment as the
+    reference's."""
     texts, srcs = corpus_texts(300, seed=9)
     segs = []
     for builder in (RefSegmentBuilder(DOCS_SCHEMA),
